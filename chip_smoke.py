@@ -1,0 +1,511 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``fish_tts_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, each
+printing its own lines; any failure raises and the script exits non-zero:
+
+1. card: the card's name and power limit (``nvidia-smi``), torch and CUDA
+   versions.
+2. build: ``nvcc`` builds the kernels from ``fish_tts_tpu_torch/csrc`` and
+   ``g++`` the BPE encoder, both from the checkout's sources.
+3. kernels: each kernel at S1-mini shapes, B = 1 and B = 4, against its
+   plain PyTorch version on the same inputs on the card.  Sampler tokens
+   must be equal; slow-stack hidden state, new K/V and logits within 1e-2 of
+   the plain version relative to its largest magnitude, layer by layer (the
+   kernels sum in another order, and an activation that rounds to the other
+   bf16 neighbour moves a product by 2^-8), and the whole 28-layer call
+   within STACK_TOL; fast-decoder codes equal and logits within the same
+   1e-2.  Median times of the kernel and the plain version (CUDA
+   events) beside the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak rate of their type, whichever is larger).
+4. main: first the engine at the tiny config on the card against the same
+   engine on the CPU with the same noise (equal codes over 40 frames); then
+   ``FishTTS(device="cuda", precision="int8")`` with random S1-mini
+   weights (full 28-layer widths) and the full-width codec;
+   ``synthesize(text, max_tokens=MAX_TOKENS)``.  Checks the WAV header, the
+   sample count ((frames - 1) x 2048) and finite audio; prints frames/s, RTF
+   and each kernel's launch count in that call, all of which must be > 0.
+
+Then one JSON line of per-kernel records (main-path shapes, B = 1) and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+package beside this file, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import io
+import json
+import statistics
+import subprocess
+import sys
+import time
+import wave
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+TEXT = "The quick brown fox jumps over the lazy dog, and then it rests in the sun."
+MAX_TOKENS = 100
+READ_LEN = 256   # the kv bucket a short synthesize reads (EngineConfig.kv_bucket_step)
+CACHE_LEN = 512  # the smallest cache allocation (engine.generate.CACHE_FLOOR)
+WINDOW = 16      # EngineConfig.rep_penalty_window
+REL_TOL = 1e-2
+# The whole 28-layer slow stack against its plain version: once one activation
+# rounds to the other bf16 neighbour, the two walk apart by bf16 rounding
+# steps, about sqrt(28 layers x 5 rounded activations) x 2^-9 = 2.3e-2 of an
+# element; the plain version against itself with float64 sums (printed
+# beside it) differs by about 1e-2 at this depth.  So the whole call is held
+# at 5e-2 and each layer, on the same input, at REL_TOL.
+STACK_TOL = 5e-2
+SAMPLING = (0.7, 0.8, 1.1)  # temperature, top_p, repetition penalty
+
+# H100 SXM data sheet (dense): memory rate, bf16 tensor-core rate and f32
+# CUDA-core rate.
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median device time of ``fn()`` over ``reps`` runs, CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# --- phase 3: kernels against their plain versions ------------------------------
+
+
+def check_sampler(B: int, gen, dev):
+    import torch
+
+    from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
+    from fish_tts_tpu_torch.ops import sampler_kernel as sk
+
+    V, W = 155776, 11  # S1-mini vocab; decode window column 1+K
+    logits = torch.randn((B, V), generator=gen, device=dev) * 3.0
+    prev = torch.randint(0, V, (B, W), generator=gen, device=dev, dtype=torch.int32)
+    prev[:, :3] = torch.topk(logits, 3, dim=-1).indices.int()  # penalize the leaders
+    g = gumbel_from_uniform(torch.rand((B, V), generator=gen, device=dev))
+    t, p, r = (torch.full((B, 1), v, device=dev) for v in SAMPLING)
+    args = (logits, prev, g, t, p, r)
+    got = sk.sample_slow(*args)
+    want = sk.sample_slow_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"sample_slow B={B}: kernel {got.tolist()} != plain {want.tolist()}")
+    ms = time_ms(lambda: sk.sample_slow(*args), 50)
+    plain_ms = time_ms(lambda: sk.sample_slow_plain(*args), 5)
+    # one read of logits and noise plus the window, one write of the ids;
+    # per lane: the window compares, two exps and 40 bisection passes
+    bms, by = bound(nbytes(logits, prev, g, t, p, r) + 4 * B,
+                    B * V * (W + 2 + 2 * sk.BISECT_ITERS + 3), F32_OPS_PER_S)
+    err = (got.long() - want.long()).abs().max().item()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=float(err),
+                note="tokens equal")
+
+
+def _qdot_f64(x, w):
+    """``slow_stack.qdot`` with float64 sums: bf16(x) @ W^T * s."""
+    import torch
+
+    xb = x.to(torch.bfloat16).double()
+    return ((xb @ w["q"].double().transpose(0, 1)) * w["s"][:, 0].double()).float()
+
+
+def check_slow_stack(params, cfg, rope, B: int, gen, dev):
+    import torch
+
+    from fish_tts_tpu_torch.models import dual_ar
+    from fish_tts_tpu_torch.ops import slow_stack as ss
+
+    shape = (cfg.n_layer, B, cfg.n_local_heads, CACHE_LEN, cfg.head_dim)
+    kv = {k: (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+          for k in ("k", "v")}
+    pos = torch.randint(READ_LEN // 2, READ_LEN, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids = dual_ar.TokenIds(cfg.vocab_size - cfg.codebook_size, cfg.vocab_size - 1, 4)
+    tokens = torch.randint(0, cfg.codebook_size, (B, 1 + cfg.num_codebooks, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    tokens[:, 0] += ids.semantic_begin  # semantic tokens: the codebook rows count
+    x = dual_ar.embed_inputs(params, cfg, ids, tokens)[:, 0].contiguous()
+
+    def kern():
+        return ss.slow_stack_step(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+
+    # the whole stack in one call against the plain version
+    got = kern()
+    want = ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+    torch.cuda.synchronize()
+    full = {}
+    for name, g_, w_ in zip(("hidden", "new_k", "new_v", "logits"), got, want):
+        if g_.shape != w_.shape:
+            fail(f"slow_stack_step B={B}: {name} shape {tuple(g_.shape)} != {tuple(w_.shape)}")
+        full[name] = rel_err(g_, w_)
+        if not full[name][1] <= STACK_TOL:
+            fail(f"slow_stack_step B={B}: {name} relative error {full[name][1]:.3g} "
+                 f"> {STACK_TOL} over {cfg.n_layer} layers")
+    # layer by layer: the kernel on one layer's weights and cache against the
+    # plain version on the same input (the kernel's own output of the layer
+    # before), so rounding differences cannot compound across layers
+    one = dataclasses.replace(cfg, n_layer=1)
+    h, layer_err = x, 0.0
+    for i in range(cfg.n_layer):
+        p1 = dict(params, layers=ss.layer(params["layers"], slice(i, i + 1)))
+        kv1 = {k: v[i:i + 1] for k, v in kv.items()}
+        g1 = ss.slow_stack_step(p1, one, rope, h, kv1, pos, read_len=READ_LEN)
+        w1 = ss.slow_stack_step_plain(p1, one, rope, h, kv1, pos, read_len=READ_LEN)
+        names = ("hidden", "new_k", "new_v") + (("logits",) if i == cfg.n_layer - 1 else ())
+        for j, name in enumerate(names):
+            rel = rel_err(g1[j], w1[j])[1]
+            layer_err = max(layer_err, rel)
+            if not rel <= REL_TOL:
+                fail(f"slow_stack_step B={B} layer {i}: {name} relative error {rel:.3g} "
+                     f"> {REL_TOL}")
+        h = g1[0][:, 0].contiguous()
+    # the yardstick for STACK_TOL: the plain version against itself with its
+    # products summed in float64, the bf16 rounding of each activation kept
+    with mock.patch.object(ss, "qdot", _qdot_f64):
+        want64 = ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+    self_rel = max(rel_err(w64, w_)[1] for w64, w_ in zip(want64, want))
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(lambda: ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos,
+                                                        read_len=READ_LEN), 3, warm=1)
+    lw = params["layers"]
+    weights = [lw[k][part] for k in ("wqkv", "wo", "w1", "w3", "w2") for part in ("q", "s")]
+    rows = int(torch.clamp(pos.long(), max=READ_LEN).sum())
+    row_bytes = 2 * cfg.n_local_heads * cfg.head_dim * kv["k"].element_size()  # K and V
+    read = (nbytes(x, pos, *weights, lw["attention_norm"], lw["ffn_norm"], params["norm"],
+                   params["embeddings"]["q"], params["embeddings"]["s"])
+            + cfg.n_layer * rows * row_bytes)
+    written = nbytes(*got)
+    n_weights = sum(lw[k]["q"].numel() for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    n_weights += params["embeddings"]["q"].numel()
+    attn_ops = 4 * cfg.n_layer * rows * cfg.n_head * cfg.head_dim
+    bms, by = bound(read + written, 2 * B * n_weights + attn_ops, BF16_OPS_PER_S)
+    err = max(e[0] for e in full.values())
+    note = (f"per layer rel <= {layer_err:.2e}; whole stack "
+            + ", ".join(f"{k} rel {v[1]:.2e}" for k, v in full.items())
+            + f" (plain with float64 sums against plain: rel {self_rel:.2e})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err, note=note)
+
+
+def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
+    import torch
+
+    from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
+    from fish_tts_tpu_torch.ops import fast_decoder as fd
+
+    K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
+    h = (torch.randn((B, cfg.fast_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    a0 = torch.randint(0, cfg.codebook_size, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    prev = torch.randint(0, Vr, (B, K - 1, WINDOW), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g = gumbel_from_uniform(torch.rand((B, K - 1, Vr), generator=gen, device=dev))
+    t, p, r = (torch.full((B, 1), v, device=dev) for v in SAMPLING)
+    args = (params, cfg, rope, h, a0, prev, g, t, p, r)
+
+    def kern():
+        return fd.fast_decode_frame(*args, window=WINDOW)
+
+    codes, logits = kern()
+    codes_p, logits_p = fd.fast_decode_frame_plain(*args, window=WINDOW)
+    torch.cuda.synchronize()
+    if not torch.equal(codes, codes_p):
+        fail(f"fast_decode_frame B={B}: kernel codes {codes.tolist()} != plain "
+             f"{codes_p.tolist()}")
+    err, rel = rel_err(logits, logits_p)
+    if not rel <= REL_TOL:
+        fail(f"fast_decode_frame B={B}: logits relative error {rel:.3g} > {REL_TOL}")
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(lambda: fd.fast_decode_frame_plain(*args, window=WINDOW), 3, warm=1)
+    fl = params["fast_layers"]
+    weights = [fl[k][part] for k in ("wqkv", "wo", "w1", "w3", "w2") for part in ("q", "s")]
+    head_rows = params["fast_output"]["q"][:Vr]
+    emb_row = params["fast_embeddings"]["q"].shape[1] + 4  # one int8 row and its scale
+    read = (nbytes(h, a0, prev, g, t, p, r, *weights, fl["attention_norm"], fl["ffn_norm"],
+                   params["fast_norm"], head_rows) + 4 * Vr
+            + B * (K - 1) * emb_row)
+    written = nbytes(codes, logits)
+    n_weights = sum(fl[k]["q"].numel() for k in ("wqkv", "wo", "w1", "w3", "w2"))
+    ops = (2 * B * K * n_weights + 2 * B * (K - 1) * head_rows.numel()
+           + 2 * B * (K - 1) * Vr * Vr)  # the pairwise top-p compares and adds
+    bms, by = bound(read + written, ops, BF16_OPS_PER_S)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                note=f"codes equal, logits rel {rel:.2e}")
+
+
+KERNELS = [
+    ("sample_slow", "fish_tts_tpu_torch/csrc/sampler.cu",
+     "fish_tts_tpu/ops/sampler_kernel.py:138"),
+    ("slow_stack_step", "fish_tts_tpu_torch/csrc/slow_stack.cu",
+     "fish_tts_tpu/ops/slow_stack.py:520"),
+    ("fast_decode_frame", "fish_tts_tpu_torch/csrc/fast_decoder.cu",
+     "fish_tts_tpu/ops/fast_decoder.py:686"),
+]
+
+
+def phase_kernels(dev, batches=(1, 4)):
+    import torch
+
+    from fish_tts_tpu_torch.models.dual_ar import make_rope_tables
+    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
+    from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+
+    cfg, params, *_ = make_s1_mini_bundle(SEED, device=dev, with_vocoder=False)
+    params = quantize_lm_params(params)
+    rope = make_rope_tables(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    results = {}
+    for B in batches:
+        rows = {
+            "sample_slow": check_sampler(B, gen, dev),
+            "slow_stack_step": check_slow_stack(params, cfg, rope["slow"], B, gen, dev),
+            "fast_decode_frame": check_fast_decoder(params, cfg, rope["fast"], B, gen, dev),
+        }
+        for name, row in rows.items():
+            print(f"kernel {name} B={B}: {row['note']}; kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+        results[B] = rows
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+# --- phase 4: the main path --------------------------------------------------------
+
+
+def check_tiny_engine(dev, frames: int = 40) -> None:
+    """The engine on the card against the same engine on the CPU (plain
+    versions, held against the JAX package by the CPU tests) at the tiny
+    config with int8 f32 weights and the same noise: equal codes."""
+    import numpy as np
+
+    from fish_tts_tpu_torch.engine.decode import GumbelNoise
+    from fish_tts_tpu_torch.engine.generate import GenerationEngine
+    from fish_tts_tpu_torch.testing import make_tiny_bundle
+    from fish_tts_tpu_torch.utils.checkpoint import to_device
+    from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+
+    cfg, params, tok, *_ = make_tiny_bundle(SEED)
+    params = quantize_lm_params(params)
+    codes = []
+    for device in ("cpu", dev):
+        engine = GenerationEngine(to_device(params, device), cfg, tok)
+        out = engine.generate_long("Hi there.", max_new_tokens=frames,
+                                   temperature=SAMPLING[0], top_p=SAMPLING[1],
+                                   repetition_penalty=SAMPLING[2],
+                                   noise=GumbelNoise(SEED, cfg, "cpu"))
+        codes.append(next(out).codes)
+    if codes[0].shape != codes[1].shape or not np.array_equal(*codes):
+        fail(f"tiny engine: codes on the card differ from the CPU path's "
+             f"({codes[1].shape} vs {codes[0].shape})")
+    print(f"main: tiny config, {codes[0].shape[1] + 1} frames on the card equal to the "
+          f"CPU path's", flush=True)
+
+
+def phase_main(dev, profile_dir=None):
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch import FishTTS
+    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
+    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
+
+    check_tiny_engine(dev)
+    bundle = make_s1_mini_bundle(SEED, device=dev)
+    t0 = time.perf_counter()
+    tts = FishTTS(device="cuda", precision="int8", warmup=True, seed=SEED,
+                  _testing_bundle=bundle)
+    torch.cuda.synchronize()
+    print(f"main: FishTTS(int8) at S1-mini width built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # observe the codes and the float audio the public call produces
+    seen = {}
+    gen_long, decode_codes = tts.engine.generate_long, tts._decode_codes
+
+    def generate_long(*a, **k):
+        t = time.perf_counter()
+        for resp in gen_long(*a, **k):
+            if resp.action == "sample":
+                torch.cuda.synchronize()
+                seen["gen_s"] = time.perf_counter() - t
+                seen["codes"] = resp.codes
+            yield resp
+
+    def decode(codes):
+        seen["audio"] = audio = decode_codes(codes)
+        return audio
+
+    tts.engine.generate_long, tts._decode_codes = generate_long, decode
+
+    modules = (sampler_kernel, slow_stack, fast_decoder)
+    for m in modules:
+        m.launches = 0
+    t = time.perf_counter()
+    wav = tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                         repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: m.launches for (name, _, _), m in zip(KERNELS, modules)}
+
+    codes, audio = seen["codes"], seen["audio"]
+    frames = codes.shape[1] + 1  # generate_long strips the final frame
+    hop = tts._vocoder_cfg.frame_length
+    with wave.open(io.BytesIO(wav)) as w:
+        header = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+        n = w.getnframes()
+    if wav[:4] != b"RIFF" or header != (1, 2, tts.sample_rate):
+        fail(f"main: bad WAV header {wav[:4]!r} {header}")
+    if codes.shape[0] != tts._cfg.num_codebooks or frames < 2:
+        fail(f"main: codes of shape {codes.shape}")
+    if n != (frames - 1) * hop or audio.shape != (n,):
+        fail(f"main: {n} samples for {frames} frames, want {(frames - 1) * hop}")
+    if not np.isfinite(audio).all():
+        fail("main: audio is not finite")
+    if not all(v > 0 for v in launches.values()):
+        fail(f"main: a kernel of the path did not run: {launches}")
+    audio_s = n / tts.sample_rate
+    print(f"main: synthesize -> {len(wav)} WAV bytes, {frames} frames, {n} samples, "
+          f"audio peak {float(np.abs(audio).max()):.4f}; {wall:.3f} s wall, "
+          f"generation {seen['gen_s']:.3f} s = {frames / seen['gen_s']:.1f} frames/s, "
+          f"RTF {wall / audio_s:.4f}", flush=True)
+    print(f"main: kernel launches {json.dumps(launches)}", flush=True)
+    if profile_dir is not None:
+        profile_synthesize(tts, Path(profile_dir), frames)
+    return launches
+
+
+def profile_synthesize(tts, out: Path, frames: int) -> None:
+    """One more synthesize under torch.profiler: device time by kernel and the
+    device's busy share of the wall time; the whole table goes to ``out``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                       repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue  # host ops: their device time is the kernels' below
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    (out / "synthesize_kernels.txt").write_text(
+        "".join(f"{ms:10.3f} ms {n:7d} x {key}\n" for ms, n, key in rows))
+    print(f"profile: {wall_ms:.1f} ms wall for {frames} frames, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%)", flush=True)
+    for ms, n, key in rows[:12]:
+        print(f"profile: {ms:9.3f} ms {n:6d} x {key[:110]}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="also profile one more synthesize call; its kernel table goes to DIR")
+    args = ap.parse_args()
+
+    if not (ROOT / "fish_tts_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: the fish_tts_tpu_torch package is not beside this script",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"card: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+
+    from fish_tts_tpu_torch.native import bpe
+    from fish_tts_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    so = kernels.build()
+    bpe.build_library()
+    kernels.lib()
+    print(f"build: {so.name} and the BPE encoder in {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+    results = phase_kernels(dev)
+    launches = phase_main(dev, args.profile)
+
+    records = []
+    for name, src, replaces in KERNELS:
+        row = results[1][name]
+        records.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Slow-token sampler: penalty + exact top-p + Gumbel argmax (kernel 1).
+
+Port of ``fish_tts_tpu/ops/sampler_kernel.py::sample_slow``.  For each row
+of (B, V) logits: apply the repetition penalty over the row's W window ids
+(divide positive logits, multiply negative ones; id 0 is penalized like any
+other), keep the top-p upper level set ``logit >= min(hi, amax)`` with
+``hi`` from 40 bisection steps over the softmax mass (``top_p >= 1`` keeps
+every lane), divide by the temperature clamped at 1e-5, and return the
+argmax of that plus the Gumbel noise, which the caller draws.
+
+``sample_slow`` launches the CUDA kernel (``csrc/sampler.cu``) for CUDA
+tensors and runs ``sample_slow_plain`` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fish_tts_tpu_torch.ops import kernels
+
+NEG = -1e30  # the Pallas kernel's mask constant
+MAX_BATCH = 16
+BISECT_ITERS = 40
+
+launches = 0  # kernel launches, for showing that a run went through it
+
+
+def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
+    """Plain PyTorch version.  logits/gumbel (B, V) f32, prev_col (B, W)
+    int, temperature/top_p/repetition_penalty (B, 1) f32.  Returns (B,)
+    int32."""
+    B, V = logits.shape
+    lanes = torch.arange(V, device=logits.device)
+    hit = (lanes[None, None, :] == prev_col.long()[:, :, None]).any(dim=1)
+    rep = repetition_penalty
+    l = torch.where(hit, torch.where(logits < 0, logits * rep, logits / rep), logits)
+    amax = l.max(dim=-1, keepdim=True).values
+    z = torch.log(torch.exp(l - amax).sum(dim=-1, keepdim=True)) + amax
+    p = torch.exp(l - z)
+    lo, hi = amax - 30.0, amax + 1.0
+    zero = torch.zeros((), dtype=l.dtype, device=l.device)
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        mass = torch.where(l >= mid, p, zero).sum(dim=-1, keepdim=True)
+        take_hi = mass <= top_p
+        lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
+    thresh = torch.minimum(hi, amax)
+    thresh = torch.where(top_p >= 1.0, torch.full_like(thresh, 0.5 * NEG), thresh)
+    masked = torch.where(l >= thresh, l, torch.full_like(l, NEG))
+    scaled = masked / torch.clamp(temperature, min=1e-5)
+    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+
+
+def sample_slow(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
+    """Sample one token id per row; see the module docstring.  Returns (B,)
+    int32 on the logits' device."""
+    if logits.device.type == "cpu":
+        return sample_slow_plain(logits, prev_col, gumbel, temperature, top_p,
+                                 repetition_penalty)
+    global launches
+    B, V = logits.shape
+    W = prev_col.shape[1]
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"sample_slow: batch {B} outside 1..{MAX_BATCH}")
+    kernels.require_cuda("logits", logits, torch.float32, (B, V))
+    kernels.require_cuda("prev_col", prev_col, torch.int32, (B, W))
+    kernels.require_cuda("gumbel", gumbel, torch.float32, (B, V))
+    for name, t in (("temperature", temperature), ("top_p", top_p),
+                    ("repetition_penalty", repetition_penalty)):
+        kernels.require_cuda(name, t, torch.float32, (B, 1))
+    out = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    kernels.launch("fts_sample_slow",
+                   [logits, prev_col, gumbel, temperature, top_p, repetition_penalty, out],
+                   [B, V, W])
+    launches += 1
+    return out

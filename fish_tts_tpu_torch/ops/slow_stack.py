@@ -1,0 +1,199 @@
+"""Slow-stack decode step: the one-token forward of the slow transformer
+plus the tied int8 LM head (kernel 2).
+
+Port of ``fish_tts_tpu/ops/slow_stack.py::slow_stack_step``.  For B <= 16
+streams at per-stream positions ``pos``, every layer runs RMSNorm, the
+int8 ``wqkv`` product, interleaved RoPE, GQA attention over the cache rows
+``r < min(pos, read_len)`` jointly with the token's own key, the int8
+``wo`` product and residual, RMSNorm and the int8 SwiGLU FFN.  Then the
+final norm and the tied int8 head give (B, V) logits.
+
+Numerics are the Pallas kernel's, not the XLA path's: every int8 product
+rounds its activation to bf16 and accumulates in f32 before the
+per-output-channel scale; the stack carries its residual in f32; the cache
+is read as f32.  The cache is read-only: the token's roped key and value
+come back as ``new_k``/``new_v`` for the caller to write at ``pos``.
+
+``slow_stack_step`` launches the CUDA kernels (``csrc/slow_stack.cu``) for
+CUDA tensors and runs ``slow_stack_step_plain`` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from fish_tts_tpu_torch.config import DualARConfig
+from fish_tts_tpu_torch.ops import kernels
+
+Params = dict[str, Any]
+
+NEG = -1e30  # the Pallas kernel's mask constant
+MAX_BATCH = 16
+
+launches = 0  # kernel launches, for showing that a run went through it
+
+
+def qdot(x: torch.Tensor, w: Params) -> torch.Tensor:
+    """``bf16(x) @ W^T * s`` with f32 accumulation; W int8 (out, in), s
+    (out, 1).  bf16 x int8 products are exact in f32."""
+    xb = x.to(torch.bfloat16).float()
+    return (xb @ w["q"].float().transpose(0, 1)) * w["s"][:, 0].float()
+
+
+def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm entirely in f32, as inside the kernels."""
+    return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * w.float()
+
+
+def rope_rows(x: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs of ``x`` (B, n_heads * Dh) by per-row
+    (cos, sin) tables ``pairs`` (B, Dh/2, 2), applied in f32."""
+    B = x.shape[0]
+    half = pairs.shape[1]
+    xp = x.reshape(B, -1, half, 2)
+    c = pairs[:, None, :, 0].float()
+    s = pairs[:, None, :, 1].float()
+    x0, x1 = xp[..., 0], xp[..., 1]
+    return torch.stack([x0 * c - x1 * s, x1 * c + x0 * s], dim=-1).reshape(x.shape)
+
+
+def layer(stack: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked (L, ...) weight tree."""
+    return {k: ({"q": v["q"][i], "s": v["s"][i]} if isinstance(v, dict) else v[i])
+            for k, v in stack.items()}
+
+
+def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_cache,
+                n_live: torch.Tensor, *, n_head: int, n_kv: int, head_dim: int,
+                eps: float):
+    """One decode block for B streams, the kernels' numerics.
+
+    x (B, D) f32; ``q_pairs`` (B, Dh/2, 2) the RoPE rows of this token;
+    k/v_cache (B, Hkv, R, Dh); ``n_live`` (B,) cache rows each stream
+    attends (rows at and beyond it are masked).  Returns (x, k (B, Hkv, Dh),
+    v (B, Hkv, Dh)) with k roped.
+    """
+    B = x.shape[0]
+    G = n_head // n_kv
+    q_size, kv_size = n_head * head_dim, n_kv * head_dim
+    qkv = qdot(rms(x, lp["attention_norm"], eps), lp["wqkv"])
+    q = rope_rows(qkv[:, :q_size], q_pairs).reshape(B, n_kv, G, head_dim)
+    k = rope_rows(qkv[:, q_size:q_size + kv_size], q_pairs).reshape(B, n_kv, head_dim)
+    v = qkv[:, q_size + kv_size:].reshape(B, n_kv, head_dim)
+    scale = 1.0 / math.sqrt(head_dim)
+    kc, vc = k_cache.float(), v_cache.float()
+    s_cache = torch.einsum("bhgd,bhrd->bhgr", q, kc) * scale
+    live = torch.arange(kc.shape[2], device=x.device)[None, :] < n_live[:, None]
+    s_cache = torch.where(live[:, None, None, :], s_cache,
+                          torch.full_like(s_cache, NEG))
+    s_self = torch.einsum("bhgd,bhd->bhg", q, k)[..., None] * scale
+    p = torch.softmax(torch.cat([s_cache, s_self], dim=-1), dim=-1)
+    o = torch.einsum("bhgr,bhrd->bhgd", p[..., :-1], vc) + p[..., -1:] * v[:, :, None]
+    x = x + qdot(o.reshape(B, q_size), lp["wo"])
+    f = rms(x, lp["ffn_norm"], eps)
+    gate = qdot(f, lp["w1"])
+    x = x + qdot(gate * torch.sigmoid(gate) * qdot(f, lp["w3"]), lp["w2"])
+    return x, k, v
+
+
+def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
+                          x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
+                          read_len: int):
+    """Plain PyTorch version of :func:`slow_stack_step`."""
+    B = x.shape[0]
+    L = cfg.n_layer
+    layers = params["layers"]
+    pairs = rope_slow[pos.long()]  # (B, Dh/2, 2)
+    n_live = torch.clamp(pos.long(), max=read_len)
+    h = x.float()
+    new_k, new_v = [], []
+    for i in range(L):
+        h, k, v = block_plain(
+            layer(layers, i), h, pairs,
+            kv_cache["k"][i, :, :, :read_len], kv_cache["v"][i, :, :, :read_len], n_live,
+            n_head=cfg.n_head, n_kv=cfg.n_local_heads, head_dim=cfg.head_dim,
+            eps=cfg.norm_eps)
+        new_k.append(k[:, :, None])
+        new_v.append(v[:, :, None])
+    logits = qdot(rms(h, params["norm"], cfg.norm_eps), params["embeddings"])
+    return h[:, None], torch.stack(new_k), torch.stack(new_v), logits
+
+
+def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
+                    x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
+                    read_len: int):
+    """Fused one-token slow forward over B independent streams.
+
+    x (B, D) embedded tokens; kv_cache {"k", "v"} (L, B, Hkv, S, Dh); pos
+    (B,) int32; ``read_len`` bounds the cache rows read.  Returns (hidden
+    (B, 1, D) f32 before the final norm, new_k (L, B, Hkv, 1, Dh) f32,
+    new_v, logits (B, V) f32).
+    """
+    if x.device.type == "cpu":
+        return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
+                                     read_len=read_len)
+    global launches
+    B, D = x.shape
+    L, H, Hkv, Dh = cfg.n_layer, cfg.n_head, cfg.n_local_heads, cfg.head_dim
+    I = cfg.intermediate_size
+    q_size, kv_size = H * Dh, Hkv * Dh
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"slow_stack_step: batch {B} outside 1..{MAX_BATCH}")
+    if not cfg.tie_word_embeddings:
+        raise ValueError("slow_stack_step: the kernel needs the tied LM head")
+    kernels.check_block_dims("slow_stack_step", D, H, Hkv, Dh, I)
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    S = kc.shape[3]
+    if kc.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"slow_stack_step: cache dtype {kc.dtype} not supported")
+    if not 0 < read_len <= S:
+        raise ValueError(f"slow_stack_step: read_len {read_len} outside 1..{S}")
+    dev = x.device
+    lw = params["layers"]
+    emb = params["embeddings"]
+    V = emb["q"].shape[0]
+    attn_norm = lw["attention_norm"].float().contiguous()
+    ffn_norm = lw["ffn_norm"].float().contiguous()
+    final_norm = params["norm"].float().contiguous()
+    checks = [
+        ("x", x, x.dtype, (B, D)),
+        ("pos", pos, torch.int32, (B,)),
+        ("rope_slow", rope_slow, torch.bfloat16, (rope_slow.shape[0], Dh // 2, 2)),
+        ("kv_cache.k", kc, kc.dtype, (L, B, Hkv, S, Dh)),
+        ("kv_cache.v", vc, kc.dtype, (L, B, Hkv, S, Dh)),
+        ("attention_norm", attn_norm, torch.float32, (L, D)),
+        ("ffn_norm", ffn_norm, torch.float32, (L, D)),
+        ("norm", final_norm, torch.float32, (D,)),
+        ("embeddings.q", emb["q"], torch.int8, (V, D)),
+        ("embeddings.s", emb["s"], torch.float32, (V, 1)),
+    ]
+    shapes = {"wqkv": (q_size + 2 * kv_size, D), "wo": (D, q_size),
+              "w1": (I, D), "w3": (I, D), "w2": (D, I)}
+    for k, (n_out, n_in) in shapes.items():
+        checks.append((f"layers.{k}.q", lw[k]["q"], torch.int8, (L, n_out, n_in)))
+        checks.append((f"layers.{k}.s", lw[k]["s"], torch.float32, (L, n_out, 1)))
+    for name, t, dtype, shape in checks:
+        kernels.require_cuda(name, t, dtype, shape)
+    if rope_slow.shape[0] < S:
+        raise ValueError("slow_stack_step: RoPE table shorter than the cache")
+
+    h = x.to(torch.float32, copy=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    new_k = torch.empty((L, B, Hkv, 1, Dh), **f32)
+    new_v = torch.empty((L, B, Hkv, 1, Dh), **f32)
+    logits = torch.empty((B, V), **f32)
+    qkv_buf = torch.empty((B, q_size + 2 * kv_size), **f32)
+    o_buf = torch.empty((B, q_size), **f32)
+    h_buf = torch.empty((B, I), **f32)
+    ptrs = [h, pos, rope_slow, kc, vc, new_k, new_v, attn_norm, ffn_norm,
+            lw["wqkv"]["q"], lw["wqkv"]["s"], lw["wo"]["q"], lw["wo"]["s"],
+            lw["w1"]["q"], lw["w1"]["s"], lw["w3"]["q"], lw["w3"]["s"],
+            lw["w2"]["q"], lw["w2"]["s"], final_norm, emb["q"], emb["s"], logits,
+            qkv_buf, o_buf, h_buf]
+    dims = [B, L, D, H, Hkv, Dh, I, V, S, read_len, int(kc.dtype == torch.bfloat16)]
+    kernels.launch("fts_slow_stack_step", ptrs, dims, eps=cfg.norm_eps)
+    launches += 1
+    return h[:, None], new_k, new_v, logits
