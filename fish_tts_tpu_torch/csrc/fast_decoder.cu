@@ -1,120 +1,1070 @@
-// Fast-codebook decoder: the per-frame loop over the K codebook positions.
+// Fast-codebook decoder: the per-frame loop over the K codebook positions,
+// as one persistent cooperative kernel launch per call.
 //
 // Replaces the Pallas kernel fish_tts_tpu/ops/fast_decoder.py
-// ::_fast_decode_frame (body _make_kernel :116-428, "value" dequant mode).
-// Position 0 runs the fast layers on the projected slow hidden state and
-// only fills the per-frame K/V cache.  Each position cb = 1..K-1 embeds the
-// previous code (int8 row x row scale), runs the layers with causal
-// attention over the positions so far, applies fast_norm and the head over
-// the first Vr rows of fast_output, then the repetition penalty over the
-// stream's window row cb-1, the exact sort-free top-p (i is kept iff
-// sum(p_j : l_j > l_i) + p_i <= top_p, or i is the argmax, or top_p >= 1),
-// temperature, and the Gumbel argmax.
+// ::_fast_decode_frame (body _make_kernel :116-428, fori_loop :423,
+// pallas_call :686, "value" dequant mode).  Position 0 runs the fast layers
+// on the projected slow hidden state and only fills the per-frame K/V
+// cache.  Each position cb = 1..K-1 embeds the previous code (int8 row x row
+// scale), runs the layers with causal attention over the positions so far,
+// applies fast_norm and the head over the first Vr rows of fast_output, then
+// the repetition penalty over the stream's window row cb - 1, the exact
+// sort-free top-p (i is kept iff sum(p_j : l_j > l_i) + p_i <= top_p, or i
+// is the argmax, or top_p >= 1), temperature and the Gumbel argmax.
 //
-// Bound: bytes.  At S1-mini width the four int8 layers are 63 MB, read once
-// per position: 10 x 63 MB per frame, since 63 MB does not stay in the 50 MB
-// L2 the way the Pallas kernel keeps the stack in VMEM.  Design: one host
-// loop launches, per position, an embedding gather, five launches per layer
-// (the same qgemv and decode-attention kernels as the slow stack, with an
-// f32 per-frame cache of K rows), the head qgemv and one sampling block per
-// stream that holds the Vr logits and probabilities in shared memory for
-// the Vr x Vr pairwise top-p comparison.
+// Bound: bytes.  At S1-mini width the four int8 layers are 62.9 MB: read
+// once that is 0.019 ms at 3.35 TB/s, but the stack does not fit the 50 MB
+// L2 the way the Pallas kernel keeps it in VMEM, so streamed once per
+// position it is 10 x 62.9 MB = 0.19 ms.  Each position is also a chain of
+// ~18 dependent steps (four per layer, head, sampling), each ending in a
+// grid-wide barrier, so the time is set as much by how soon one step can
+// follow another as by the bytes.
+//
+// Design: one launch of every block the card can hold (cooperative launch;
+// it fails rather than runs if the blocks cannot all be resident), the
+// phases separated by grid-wide barriers (cooperative_groups grid sync):
+//   1. (merge of the sampled code, embedding) + RMSNorm + W_qkv
+//   2. RoPE + attention + W_o + residual
+//   3. RMSNorm + W_1/W_3 SwiGLU
+//   4. W_2 + residual                        (1-4 for each layer)
+//   5. fast_norm + head over the first Vr rows
+//   6. penalty + softmax + pairwise top-p + Gumbel score over a share of
+//      the Vr lanes, one (value, index) candidate per block and stream
+// Position 0's last layer stops after W_qkv and the cache row: its output
+// is discarded.  Block i owns the same output rows of every matrix at every
+// layer and position (a contiguous range, so its rows are one contiguous
+// span of bytes) and the same lanes of the sampler.  Weights do not depend
+// on the activations, so the copy engine (cp.async.bulk, counted on an
+// mbarrier) brings the rows, scales and norm weight a block owns in its
+// next weighted phase into shared memory while the current phase computes
+// and the barrier waits: two slots where shared memory allows, else one,
+// filled before the barrier.  A phase issues that copy only after its own
+// reads have landed, so they do not queue behind it.  After a barrier a
+// phase waits only for its activations, one read from L2, with 16-byte
+// loads.  The residual rows a block owns stay in its registers.  int8
+// weights become floats by a byte permute and an add, not the quarter-rate
+// convert.  A row's K is split over the warps of its block when there are
+// fewer rows than warps; every sum, within a block or across the warps of
+// one, is taken in one fixed order, so no float atomics are used, two calls
+// give bit-identical results, and the work that every block repeats rather
+// than pay for a barrier (the RMSNorm statistics, the attention over at
+// most K cached rows, the penalty and softmax over the Vr lanes) gives the
+// same values in every block.  Cross-block data (residual, projections,
+// logits, candidates, cache) is read with ld.global.cg, from L2, never from
+// a stale L1 line.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 enum {
   kH, kA0, kPrev, kGumbel, kTemp, kTopP, kRep, kRope,
   kAttnNorm, kFfnNorm, kWqkv, kWqkvS, kWo, kWoS, kW1, kW1S, kW3, kW3S, kW2, kW2S,
   kFastNorm, kHead, kHeadS, kEmb, kEmbS, kCodes, kLogitsOut,
-  kXBuf, kQkvBuf, kOBuf, kHBuf, kKCache, kVCache, kHeadBuf, kCodeBuf, kNumPtrs
+  kScratch, kClock, kNumPtrs
 };
-enum { kB, kK, kL, kD, kHeads, kHkv, kDh, kI, kVr, kW, kNumDims };
+enum {
+  kB, kK, kL, kD, kHeads, kHkv, kDh, kI, kVr, kW, kHBf16, kCandCap, kClockCap, kScratchFloats,
+  kNumDims
+};
 
 namespace fts {
 namespace {
 
-constexpr int kFastSampThreads = 1024;
-constexpr int kMaxWindow = 64;
+namespace cg = cooperative_groups;
 
-// x[b, :] = emb_q[code[b], :] * emb_s[code[b]]
-__global__ void embed_kernel(const int* __restrict__ code, const int8_t* __restrict__ emb,
-                             const float* __restrict__ emb_s, int D, float* __restrict__ x) {
-  const int b = blockIdx.x;
-  const int c = code[b];
-  const float s = emb_s[c];
-  for (int d = threadIdx.x; d < D; d += blockDim.x)
-    x[(size_t)b * D + d] = (float)emb[(size_t)c * D + d] * s;
+constexpr int kFastThreads = 512;
+constexpr int kFastWarps = kFastThreads / 32;
+constexpr int kMaxWindow = 64;
+constexpr int kMaxPos = 12;           // codebook positions per frame
+constexpr int kMaxFastHeadDim = 64;   // one RoPE pair per lane
+
+// The weighted phases: the matrix (or pair) whose owned rows a phase reads.
+enum WKind { kNoWeights = -1, kQkvW = 0, kWoW = 1, kW13W = 2, kW2W = 3, kHeadW = 4 };
+// Where a layer's input comes from: the residual stream, the projected slow
+// hidden state (position 0), or the embedding of each stream's code.
+enum Source { kFromX = 0, kFromH = 1, kFromEmb = 2 };
+
+struct FastArgs {
+  const void* h;  // (B, D) f32 or bf16
+  const int* a0;
+  const int* prev;
+  const float* gumbel;
+  const float* temp;
+  const float* top_p;
+  const float* rep;
+  const __nv_bfloat16* rope;
+  const float* attn_norm;
+  const float* ffn_norm;
+  const int8_t* wqkv; const float* wqkv_s;
+  const int8_t* wo; const float* wo_s;
+  const int8_t* w1; const float* w1_s;
+  const int8_t* w3; const float* w3_s;
+  const int8_t* w2; const float* w2_s;
+  const float* fast_norm;
+  const int8_t* head; const float* head_s;
+  const int8_t* emb; const float* emb_s;
+  int* codes;
+  float* logits_out;
+  float* x;         // (B, D) residual stream
+  float* qkv;       // (B, H*Dh + 2*Hkv*Dh)
+  float* hbuf;      // (B, I) SwiGLU hidden
+  float* kc;        // (L, B, Hkv, K, Dh) per-frame cache
+  float* vc;
+  float* head_buf;  // (B, Vr) head logits
+  float* cand_v;    // (grid, B) best Gumbel score of each block's lanes
+  int* cand_i;
+  unsigned long long* clock;  // (grid, clock_cap) barrier times, or nullptr
+  int B, K, L, D, H, Hkv, Dh, I, Vr, W, h_bf16, clock_cap;
+  int wslots;        // weight slots in shared memory: 1 or 2
+  int wslot_bytes;   // bytes of one slot
+  int wslot_offset;  // byte offset of the first slot
+  float eps;
+};
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Dynamic shared memory, in order:
+//   act    one of: the bf16 staging of a GEMV's input (B x its K); that of a
+//          normed input (B x D) with the f32 input itself at xf_offset; the
+//          sampler's penalized logits and probabilities (2 x B x Vr f32)
+//   part   the GEMV's partial sums (and the sampler's per-lane scores)
+//   bits   the penalty window of the next sampled position, a bit per lane
+//   gum    its Gumbel noise at the lanes this block owns
+//   slots  one or two weight slots (the launch sizes them)
+__host__ __device__ inline size_t xf_offset(int B, int D) {
+  return round16((size_t)B * D * sizeof(__nv_bfloat16));
+}
+__host__ __device__ inline size_t act_bytes(int B, int D, int max_k, int Vr) {
+  size_t a = (size_t)B * max_k * sizeof(__nv_bfloat16);
+  const size_t s = (size_t)B * Vr * 2 * sizeof(float);
+  const size_t n = xf_offset(B, D) + (size_t)B * D * sizeof(float);
+  a = a > s ? a : s;
+  a = a > n ? a : n;
+  return round16(a);
+}
+__host__ __device__ inline size_t bits_bytes(int B, int Vr) {
+  return round16((size_t)B * ((Vr + 31) / 32) * sizeof(unsigned));
 }
 
-// One block per stream: penalty, exact pairwise top-p, temperature, Gumbel
-// argmax over the Vr residual-book logits at codebook position cb.
-__global__ void __launch_bounds__(kFastSampThreads)
-fast_sample_kernel(const float* __restrict__ head, const int* __restrict__ prev,
-                   const float* __restrict__ gumbel, const float* __restrict__ temp,
-                   const float* __restrict__ top_p, const float* __restrict__ rep,
-                   float* __restrict__ logits_out, int* __restrict__ codes,
-                   int* __restrict__ code_buf, int K, int Vr, int W, int cb) {
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int R = K - 1;
-  extern __shared__ __align__(16) float sm[];
-  float* lv = sm;       // penalized logits
-  float* pv = sm + Vr;  // softmax probabilities
-  __shared__ float scratch[33];
-  __shared__ int win[kMaxWindow];
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
+// The contiguous range [r0, r1) of N rows (or lanes) that this block owns.
+__device__ __forceinline__ void owned(int N, int& r0, int& r1) {
+  r0 = (int)(blockIdx.x * (unsigned)N / gridDim.x);
+  r1 = (int)((blockIdx.x + 1) * (unsigned)N / gridDim.x);
+}
 
-  for (int w = tid; w < W; w += blockDim.x) win[w] = prev[((size_t)b * R + cb - 1) * W + w];
-  __syncthreads();
-  const float r_pen = rep[b];
-  float lmax = -FLT_MAX;
-  for (int i = tid; i < Vr; i += blockDim.x) {
-    float l = head[(size_t)b * Vr + i];
-    bool hit = false;
-    for (int w = 0; w < W; ++w) hit |= (win[w] == i);
-    if (hit) l = l < 0.f ? l * r_pen : l / r_pen;
-    lv[i] = l;
-    logits_out[((size_t)b * R + cb - 1) * Vr + i] = l;
-    lmax = fmaxf(lmax, l);
-  }
-  const float amax = block_reduce<true>(lmax, scratch);
-  float se = 0.f;
-  for (int i = tid; i < Vr; i += blockDim.x) se += expf(lv[i] - amax);
-  const float z = logf(block_reduce<false>(se, scratch)) + amax;
-  for (int i = tid; i < Vr; i += blockDim.x) pv[i] = expf(lv[i] - z);
-  __syncthreads();
+// Segments a row's K is cut into: more while the block has warps to spare
+// and each segment keeps at least two 16-byte chunks per lane.
+__device__ __forceinline__ int seg_count(int N, int K) {
+  const int nr_max = (N + gridDim.x - 1) / gridDim.x;
+  int S = 1;
+  while (nr_max * S * 2 <= kFastWarps && (K / (S * 2)) % 16 == 0 && K / (S * 2) >= 1024) S *= 2;
+  return S;
+}
 
-  const float tp = top_p[b];
-  const float t_clamped = fmaxf(temp[b], 1e-5f);
-  const float* g = gumbel + ((size_t)b * R + cb - 1) * Vr;
-  float best = -FLT_MAX;
-  int best_i = 0x7fffffff;
-  for (int i = tid; i < Vr; i += blockDim.x) {
-    const float li = lv[i];
-    float above = 0.f;
-    for (int j = 0; j < Vr; ++j) above += lv[j] > li ? pv[j] : 0.f;
-    const bool keep = (above + pv[i] <= tp) || (li >= amax) || (tp >= 1.0f);
-    const float val = (keep ? li : kNeg) / t_clamped + g[i];
-    if (val > best) { best = val; best_i = i; }
+// The weights of one phase: its (N, K) int8 matrix and scales at layer l,
+// the SwiGLU up matrix beside W_1, the RMSNorm weight of its input (or
+// none), and the rows this block owns.
+struct Span {
+  const int8_t* w;
+  const float* s;
+  const int8_t* wu;
+  const float* su;
+  const float* norm;
+  int N, K, r0, r1;
+};
+
+// Slot layout (a bulk copy moves 16-byte-aligned spans): the owned rows of
+// w, then of wu (r1 - r0 rows of K bytes each), the 16-byte-aligned span
+// holding s[r0, r1), the same for su, then the D-float RMSNorm weight.
+__device__ __forceinline__ int rows_bytes(const Span& sp) { return (sp.r1 - sp.r0) * sp.K; }
+__device__ __forceinline__ int scale_region(const Span& sp) {
+  return (int)round16((size_t)(sp.r1 - sp.r0) * sizeof(float) + 16);
+}
+__device__ __forceinline__ const float* aligned_down(const float* p) {
+  return reinterpret_cast<const float*>(reinterpret_cast<size_t>(p) & ~(size_t)15);
+}
+// s[r0 + j] is slot_scales(...)[j]; su[r0 + j] is slot_scales(..., true)[j].
+__device__ __forceinline__ const float* slot_scales(const Span& sp, const unsigned char* slot,
+                                                    bool up = false) {
+  const int nmat = sp.wu != nullptr ? 2 : 1;
+  const float* src = up ? sp.su : sp.s;
+  const unsigned char* region = slot + nmat * rows_bytes(sp) + (up ? scale_region(sp) : 0);
+  return reinterpret_cast<const float*>(region) + (src + sp.r0 - aligned_down(src + sp.r0));
+}
+__device__ __forceinline__ const float* slot_norm(const Span& sp, const unsigned char* slot) {
+  const int nmat = sp.wu != nullptr ? 2 : 1;
+  return reinterpret_cast<const float*>(slot + nmat * (rows_bytes(sp) + scale_region(sp)));
+}
+
+// own[2 * kind], own[2 * kind + 1]: the rows this block owns in each kind.
+__device__ Span phase_span(const FastArgs& a, int kind, int l, const int* own) {
+  const int q_size = a.H * a.Dh, nqkv = q_size + 2 * a.Hkv * a.Dh;
+  Span sp{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
+  if (kind == kQkvW) {
+    sp.w = a.wqkv + (size_t)l * nqkv * a.D; sp.s = a.wqkv_s + (size_t)l * nqkv;
+    sp.norm = a.attn_norm + (size_t)l * a.D;
+    sp.N = nqkv; sp.K = a.D;
+  } else if (kind == kWoW) {
+    sp.w = a.wo + (size_t)l * a.D * q_size; sp.s = a.wo_s + (size_t)l * a.D;
+    sp.N = a.D; sp.K = q_size;
+  } else if (kind == kW13W) {
+    sp.w = a.w1 + (size_t)l * a.I * a.D; sp.s = a.w1_s + (size_t)l * a.I;
+    sp.wu = a.w3 + (size_t)l * a.I * a.D; sp.su = a.w3_s + (size_t)l * a.I;
+    sp.norm = a.ffn_norm + (size_t)l * a.D;
+    sp.N = a.I; sp.K = a.D;
+  } else if (kind == kW2W) {
+    sp.w = a.w2 + (size_t)l * a.D * a.I; sp.s = a.w2_s + (size_t)l * a.D;
+    sp.N = a.D; sp.K = a.I;
+  } else {
+    sp.w = a.head; sp.s = a.head_s;
+    sp.norm = a.fast_norm;
+    sp.N = a.Vr; sp.K = a.D;
   }
-  const int lane = tid & 31, warp = tid >> 5;
+  sp.r0 = own[2 * kind];
+  sp.r1 = own[2 * kind + 1];
+  return sp;
+}
+
+// The weighted phase after (pos, kind, l) in the frame, or kNoWeights.
+__device__ void next_weighted(const FastArgs& a, int pos, int kind, int l, int& nkind, int& nl) {
+  nl = l;
+  if (kind == kQkvW) {
+    if (pos == 0 && l == a.L - 1) {  // position 0 stops after its last W_qkv
+      nkind = kQkvW;
+      nl = 0;
+    } else {
+      nkind = kWoW;
+    }
+  } else if (kind == kWoW) {
+    nkind = kW13W;
+  } else if (kind == kW13W) {
+    nkind = kW2W;
+  } else if (kind == kW2W) {
+    nkind = l + 1 < a.L ? kQkvW : kHeadW;
+    nl = l + 1 < a.L ? l + 1 : 0;
+  } else {
+    nkind = pos + 1 < a.K ? kQkvW : kNoWeights;
+    nl = 0;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One bulk copy of `bytes` (a multiple of 16) by the copy engine, counted
+// on the slot's mbarrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Block until the slot's mbarrier completes the phase of the given parity.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Thread 0 starts the copy engine on the owned rows, scales and norm
+// weight of a phase into a slot, all counted on the slot's mbarrier.  The
+// slot's previous readers have passed a block barrier.
+__device__ void issue_copy(const Span& sp, unsigned char* slot, unsigned long long* bar, int D) {
+  if (threadIdx.x != 0) return;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  const int nmat = sp.wu != nullptr ? 2 : 1;
+  const unsigned rows = (unsigned)rows_bytes(sp);
+  const bool any = sp.r1 > sp.r0;
+  const float* s_lo = aligned_down(sp.s + sp.r0);
+  const unsigned s_bytes =
+      any ? (unsigned)round16(reinterpret_cast<size_t>(sp.s + sp.r1) -
+                              reinterpret_cast<size_t>(s_lo))
+          : 0u;
+  const float* su_lo = nmat == 2 ? aligned_down(sp.su + sp.r0) : nullptr;
+  const unsigned su_bytes =
+      any && nmat == 2
+          ? (unsigned)round16(reinterpret_cast<size_t>(sp.su + sp.r1) -
+                              reinterpret_cast<size_t>(su_lo))
+          : 0u;
+  const unsigned norm_bytes = sp.norm != nullptr ? (unsigned)(D * sizeof(float)) : 0u;
+  const unsigned total = nmat * rows + s_bytes + su_bytes + norm_bytes;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(total)
+               : "memory");
+  unsigned char* sreg = slot + nmat * rows;
+  if (rows > 0) {
+    bulk_copy(slot, sp.w + (size_t)sp.r0 * sp.K, rows, bar);
+    if (nmat == 2) bulk_copy(slot + rows, sp.wu + (size_t)sp.r0 * sp.K, rows, bar);
+  }
+  if (s_bytes > 0) bulk_copy(sreg, s_lo, s_bytes, bar);
+  if (su_bytes > 0) bulk_copy(sreg + scale_region(sp), su_lo, su_bytes, bar);
+  if (norm_bytes > 0)
+    bulk_copy(const_cast<float*>(slot_norm(sp, slot)), sp.norm, norm_bytes, bar);
+}
+
+// f[j] = (float)int8 byte j of v, exactly: the byte (biased by 128) goes
+// into the low mantissa bits of 2^23 by a byte permute, and one add takes
+// 2^23 + 128 away; cheaper than the quarter-rate int-to-float convert.
+__device__ __forceinline__ void int8x16_to_float(const int4& v, float* f) {
+  const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
-    if (ov > best || (ov == best && oi < best_i)) { best = ov; best_i = oi; }
+  for (int q = 0; q < 4; ++q) {
+    const unsigned u = w[q] ^ 0x80808080u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[4 * q + k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | k)) - 8388736.0f;
   }
-  if (lane == 0) { red_v[warp] = best; red_i[warp] = best_i; }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) {
-      if (red_v[w] > best || (red_v[w] == best && red_i[w] < best_i)) {
-        best = red_v[w];
-        best_i = red_i[w];
+}
+
+// acc[b] += sum_j x[b, k0 + j] * w[j] over one 16-byte chunk of a row (and
+// the same for the SwiGLU up row); xk points at x[0, k0] in the staging.
+template <int MAXB, bool UP>
+__device__ __forceinline__ void fma_chunk(const int4& wv, const int4& uv,
+                                          const __nv_bfloat16* xk, int K, int B, float* acc,
+                                          float* accu) {
+  float wf[16], uf[16];
+  int8x16_to_float(wv, wf);
+  if (UP) int8x16_to_float(uv, uf);
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b) {
+    if (b < B) {
+      const uint4* xp = reinterpret_cast<const uint4*>(xk + (size_t)b * K);
+      const uint4 xa = xp[0], xb = xp[1];
+      const __nv_bfloat162* h2a = reinterpret_cast<const __nv_bfloat162*>(&xa);
+      const __nv_bfloat162* h2b = reinterpret_cast<const __nv_bfloat162*>(&xb);
+      float xf[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(h2a[j]);
+        const float2 fb = __bfloat1622float2(h2b[j]);
+        xf[2 * j] = fa.x; xf[2 * j + 1] = fa.y;
+        xf[8 + 2 * j] = fb.x; xf[8 + 2 * j + 1] = fb.y;
+      }
+      float a = acc[b];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) a = fmaf(xf[j], wf[j], a);
+      acc[b] = a;
+      if (UP) {
+        float u = accu[b];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) u = fmaf(xf[j], uf[j], u);
+        accu[b] = u;
       }
     }
-    codes[b * R + cb - 1] = best_i;
-    code_buf[b] = best_i;
   }
+}
+
+// Partial sums of the owned rows: part[(j * S + sg) * 2 * MAXB + b] (and
+// + MAXB for the up row) = segment sg of row r0 + j against xs (B, K) bf16.
+// Weights come from the slot in shared memory.  Returns S; ends with the
+// block synchronised.
+template <int MAXB>
+__device__ int gemv_partials(const Span& sp, const unsigned char* slot,
+                             const __nv_bfloat16* xs, int B, float* part) {
+  const int K = sp.K, nr = sp.r1 - sp.r0;
+  const int S = seg_count(sp.N, K);
+  const int seg = K / S, nch = seg / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int8_t* wrows = reinterpret_cast<const int8_t*>(slot);
+  const int8_t* urows = wrows + (size_t)nr * K;
+  const bool up = sp.wu != nullptr;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int t = warp; t < nr * S; t += kFastWarps) {
+    const int j = t / S, sg = t - j * S;
+    const int4* wr = reinterpret_cast<const int4*>(wrows + (size_t)j * K + (size_t)sg * seg);
+    const int4* ur = reinterpret_cast<const int4*>(urows + (size_t)j * K + (size_t)sg * seg);
+    const __nv_bfloat16* xb = xs + (size_t)sg * seg;
+    float acc[MAXB], accu[MAXB];
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) acc[b] = accu[b] = 0.f;
+    if (up) {
+      for (int c = lane; c < nch; c += 32)
+        fma_chunk<MAXB, true>(wr[c], ur[c], xb + c * 16, K, B, acc, accu);
+    } else {
+      for (int c = lane; c < nch; c += 32)
+        fma_chunk<MAXB, false>(wr[c], zero, xb + c * 16, K, B, acc, accu);
+    }
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) {
+      if (b < B) {
+        const float s = warp_sum(acc[b]);
+        const float u = up ? warp_sum(accu[b]) : 0.f;
+        if (lane == 0) {
+          part[(size_t)t * 2 * MAXB + b] = s;
+          part[(size_t)t * 2 * MAXB + MAXB + b] = u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  return S;
+}
+
+// Row r0 + j of stream b from the partials, scaled: (down, up).
+template <int MAXB>
+__device__ __forceinline__ float2 row_value(const Span& sp, const unsigned char* slot,
+                                            const float* part, int S, int j, int b) {
+  float s = 0.f, u = 0.f;
+  for (int sg = 0; sg < S; ++sg) {
+    s += part[(size_t)(j * S + sg) * 2 * MAXB + b];
+    u += part[(size_t)(j * S + sg) * 2 * MAXB + MAXB + b];
+  }
+  return make_float2(s * slot_scales(sp, slot)[j],
+                     sp.wu != nullptr ? u * slot_scales(sp, slot, true)[j] : 0.f);
+}
+
+// out[b * ld + r0 + j] = row r0 + j of stream b, or silu(W_1 row) * (W_3
+// row) for the SwiGLU pair.
+template <int MAXB>
+__device__ __forceinline__ void store_rows(const Span& sp, const unsigned char* slot,
+                                           const float* part, int S, int B, float* out, int ld) {
+  for (int i = threadIdx.x; i < (sp.r1 - sp.r0) * B; i += kFastThreads) {
+    const int j = i / B, b = i - j * B;
+    const float2 v = row_value<MAXB>(sp, slot, part, S, j, b);
+    __stcg(out + (size_t)b * ld + sp.r0 + j,
+           sp.wu != nullptr ? (v.x * sigmoidf(v.x)) * v.y : v.x);
+  }
+}
+
+// rstd[b] = 1 / sqrt(sum_k v[b, k]^2 / n + eps): warp w sums its share of
+// row b, lanes strided by the block; then warp b folds the 16 shares with a
+// fixed butterfly, so every block gets the same bits.
+__device__ void rms_scales(const float* v, int B, int n, float eps, float* red, float* rstd) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int b = 0; b < B; ++b) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = warp * 32 + lane; k < n; k += kFastThreads) {
+      const float t = v[(size_t)b * n + k];
+      acc += t * t;
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) red[b * kFastWarps + warp] = acc;
+  }
+  __syncthreads();
+  for (int b = warp; b < B; b += kFastWarps) {
+    float acc = lane < kFastWarps ? red[b * kFastWarps + lane] : 0.f;
+#pragma unroll
+    for (int o = kFastWarps / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) rstd[b] = 1.0f / sqrtf(acc / (float)n + eps);
+  }
+  __syncthreads();
+}
+
+// amax[b] = max_k v[b, k] and lse[b] = log(sum_k exp(v[b, k] - amax[b]))
+// + amax[b] in one pass: each thread keeps (max, sum of exp below it) over
+// its lanes, and pairs merge, rescaling the smaller side, over the warp and
+// then over the warps in a fixed butterfly, so every block gets the same
+// bits.
+__device__ __forceinline__ void merge_max_sum(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+__device__ void rows_softmax_stats(const float* v, int B, int n, float* red, float* amax,
+                                   float* lse) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* red_s = red + kMaxBatch * kFastWarps;
+  for (int b = 0; b < B; ++b) {
+    float m = -FLT_MAX, s = 0.f;
+    for (int k = warp * 32 + lane; k < n; k += kFastThreads) m = fmaxf(m, v[(size_t)b * n + k]);
+    for (int k = warp * 32 + lane; k < n; k += kFastThreads) s += expf(v[(size_t)b * n + k] - m);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+      merge_max_sum(m, s, m2, s2);
+    }
+    if (lane == 0) {
+      red[b * kFastWarps + warp] = m;
+      red_s[b * kFastWarps + warp] = s;
+    }
+  }
+  __syncthreads();
+  for (int b = warp; b < B; b += kFastWarps) {
+    float m = lane < kFastWarps ? red[b * kFastWarps + lane] : -FLT_MAX;
+    float s = lane < kFastWarps ? red_s[b * kFastWarps + lane] : 0.f;
+#pragma unroll
+    for (int o = kFastWarps / 2; o > 0; o >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+      merge_max_sum(m, s, m2, s2);
+    }
+    if (lane == 0) {
+      amax[b] = m;
+      lse[b] = logf(s) + m;
+    }
+  }
+  __syncthreads();
+}
+
+// xf[b, k] = the input, then xs[b, k] = bf16(xf[b, k] * rstd_b * nw[k])
+// with rstd_b the RMSNorm scale of row b and nw in shared memory.  The
+// input is read once, by all threads at once.
+__device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int* code,
+                                           const float* nw, __nv_bfloat16* xs, float* xf,
+                                           float* red, float* rstd) {
+  const int B = a.B, D = a.D;
+  for (int i = threadIdx.x; i < B * D / 4; i += kFastThreads) {  // 4 lanes at a time
+    float4 v;
+    if (src == kFromX) {
+      v = __ldcg(reinterpret_cast<const float4*>(a.x) + i);
+    } else if (src == kFromH && a.h_bf16) {
+      const uint2 u = reinterpret_cast<const uint2*>(a.h)[i];
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v = make_float4(lo.x, lo.y, hi.x, hi.y);
+    } else if (src == kFromH) {
+      v = reinterpret_cast<const float4*>(a.h)[i];
+    } else {
+      const int b = 4 * i / D, c = code[b];
+      const char4 q = *reinterpret_cast<const char4*>(a.emb + (size_t)c * D + (4 * i - b * D));
+      const float sc = __ldg(a.emb_s + c);
+      v = make_float4((float)q.x * sc, (float)q.y * sc, (float)q.z * sc, (float)q.w * sc);
+    }
+    reinterpret_cast<float4*>(xf)[i] = v;
+  }
+  __syncthreads();
+  rms_scales(xf, B, D, a.eps, red, rstd);
+  for (int i = threadIdx.x; i < B * D; i += kFastThreads) {
+    const int b = i / D;
+    xs[i] = __float2bfloat16_rn((xf[i] * rstd[b]) * nw[i - b * D]);
+  }
+  __syncthreads();
+}
+
+// Attention of every stream and query head at position pos (cache rows
+// r < pos plus the token's own key), run in every block; the output goes
+// to xs (B, H*Dh) as bf16, the input of W_o.  One warp per (stream, KV
+// head, share of its G query heads), the shares as many as keep every warp
+// busy; lane i holds dims (2i, 2i + 1).  Every load (own key and value, the
+// queries, the cache rows) is issued before any score is formed, and
+// after_loads() runs once the first task's loads have landed.  Block 0
+// also writes the token's roped key and value into cache row pos.
+template <typename F>
+__device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
+                                           const __nv_bfloat16* rope_s, __nv_bfloat16* xs,
+                                           F after_loads) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = a.H / a.Hkv, q_size = a.H * a.Dh, kv_size = a.Hkv * a.Dh;
+  const int nqkv = q_size + 2 * kv_size;
+  int shares = kFastWarps / (a.B * a.Hkv);
+  shares = shares < 1 ? 1 : (shares > G ? G : shares);
+  while (G % shares != 0) --shares;
+  const int gs = G / shares;  // query heads per task
+  const bool on = lane < a.Dh / 2;
+  const float scale = 1.0f / sqrtf((float)a.Dh);
+  const __nv_bfloat16* rope_row = rope_s + pos * a.Dh;
+  const size_t c_sh = (size_t)a.K * a.Dh, c_sb = c_sh * a.Hkv, c_sl = c_sb * a.B;
+  bool first = true;
+  for (int t = warp; t < a.B * a.Hkv * shares; t += kFastWarps) {
+    const int bj = t / shares, g0 = (t - bj * shares) * gs;
+    const int b = bj / a.Hkv, j = bj - b * a.Hkv;
+    const float* row = a.qkv + (size_t)b * nqkv;
+    const size_t cb = l * c_sl + b * c_sb + j * c_sh;
+    float2 kk = make_float2(0.f, 0.f), vs = kk;
+    float2 qq[2], kr[kMaxPos], vr[kMaxPos];
+    if (on) {
+      kk = __ldcg(reinterpret_cast<const float2*>(row + q_size + j * a.Dh) + lane);
+      vs = __ldcg(reinterpret_cast<const float2*>(row + q_size + kv_size + j * a.Dh) + lane);
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      qq[g] = make_float2(0.f, 0.f);
+      if (g < gs && on)
+        qq[g] = __ldcg(reinterpret_cast<const float2*>(row + (j * G + g0 + g) * a.Dh) + lane);
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxPos; ++r) {
+      kr[r] = vr[r] = make_float2(0.f, 0.f);
+      if (r < pos && on) {
+        kr[r] = __ldcg(reinterpret_cast<const float2*>(a.kc + cb + (size_t)r * a.Dh) + lane);
+        vr[r] = __ldcg(reinterpret_cast<const float2*>(a.vc + cb + (size_t)r * a.Dh) + lane);
+      }
+    }
+    float ks[2] = {0.f, 0.f};
+    if (on) rope_pair(kk.x, kk.y, rope_row, lane, &ks[0], &ks[1]);
+    if (first) {
+      // every load of this task is in use below; wait for them here
+      float dep = ks[0] + vs.x + qq[0].x;
+#pragma unroll
+      for (int r = 0; r < kMaxPos; ++r) dep += kr[r].x + vr[r].y;
+      asm volatile("add.f32 %0, %0, 0f00000000;" : "+f"(dep));
+      after_loads();
+      first = false;
+    }
+    if (blockIdx.x == 0 && on && g0 == 0) {
+      const size_t at = cb + (size_t)pos * a.Dh + 2 * lane;
+      __stcg(reinterpret_cast<float2*>(a.kc + at), make_float2(ks[0], ks[1]));
+      __stcg(reinterpret_cast<float2*>(a.vc + at), vs);
+    }
+    for (int g = 0; g < gs; ++g) {
+      {
+        if (g >= 2 && (g & 1) == 0) {  // the next pair of query heads
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            qq[h] = make_float2(0.f, 0.f);
+            if (g + h < gs && on)
+              qq[h] = __ldcg(reinterpret_cast<const float2*>(row + (j * G + g0 + g + h) * a.Dh) +
+                             lane);
+          }
+        }
+        const float2 qg = (g & 1) ? qq[1] : qq[0];
+        float q0 = 0.f, q1 = 0.f;
+        if (on) rope_pair(qg.x, qg.y, rope_row, lane, &q0, &q1);
+        const float s_self = warp_sum(fmaf(q1, ks[1], q0 * ks[0])) * scale;
+        // every row's sum runs (rows past pos hold zeros) so that no
+        // shuffle sits under a branch; they are masked after
+        float sc[kMaxPos];
+        float mx = s_self;
+#pragma unroll
+        for (int r = 0; r < kMaxPos; ++r) {
+          sc[r] = warp_sum(fmaf(q1, kr[r].y, q0 * kr[r].x)) * scale;
+          sc[r] = r < pos ? sc[r] : kNeg;
+          mx = fmaxf(mx, sc[r]);
+        }
+        const float p_self = expf(s_self - mx);
+        float den = p_self, o0 = p_self * vs.x, o1 = p_self * vs.y;
+#pragma unroll
+        for (int r = 0; r < kMaxPos; ++r) {
+          if (r < pos) {
+            const float p = expf(sc[r] - mx);
+            den += p;
+            o0 = fmaf(p, vr[r].x, o0);
+            o1 = fmaf(p, vr[r].y, o1);
+          }
+        }
+        if (on) {
+          __nv_bfloat16* o = xs + (size_t)b * q_size + (j * G + g0 + g) * a.Dh + 2 * lane;
+          o[0] = __float2bfloat16_rn(o0 / den);
+          o[1] = __float2bfloat16_rn(o1 / den);
+        }
+      }
+    }
+  }
+  if (first) after_loads();
+  __syncthreads();
+}
+
+// Block 0 writes the token's key and value into cache row pos of layer l
+// (position 0's last layer, which runs no attention).
+__device__ void write_cache_row(const FastArgs& a, int l, int pos, const __nv_bfloat16* rope_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q_size = a.H * a.Dh, kv_size = a.Hkv * a.Dh;
+  const size_t c_sh = (size_t)a.K * a.Dh, c_sb = c_sh * a.Hkv, c_sl = c_sb * a.B;
+  for (int t = warp; t < a.B * a.Hkv && lane < a.Dh / 2; t += kFastWarps) {
+    const int b = t / a.Hkv, j = t - b * a.Hkv;
+    const float* row = a.qkv + (size_t)b * (q_size + 2 * kv_size);
+    const float2 kk = __ldcg(reinterpret_cast<const float2*>(row + q_size + j * a.Dh) + lane);
+    const float2 vv =
+        __ldcg(reinterpret_cast<const float2*>(row + q_size + kv_size + j * a.Dh) + lane);
+    float k0, k1;
+    rope_pair(kk.x, kk.y, rope_s + pos * a.Dh, lane, &k0, &k1);
+    const size_t at = l * c_sl + b * c_sb + j * c_sh + (size_t)pos * a.Dh + 2 * lane;
+    __stcg(reinterpret_cast<float2*>(a.kc + at), make_float2(k0, k1));
+    __stcg(reinterpret_cast<float2*>(a.vc + at), vv);
+  }
+}
+
+// Phase 6 at codebook position cb: the penalty and softmax over all Vr
+// lanes of every stream (every block, the same order), then the pairwise
+// top-p rule and Gumbel score for the lanes this block owns; its best
+// (score, lane) per stream goes to cand_v/cand_i, ties to the lowest lane.
+// bits and gum were filled during the head phase; samp holds the clamped
+// temperature, top_p and penalty of each stream.
+__device__ __forceinline__ void sample_share(const FastArgs& a, int cb, float* lv, float* cand,
+                                             const unsigned* bits, const float* gum,
+                                             const float* samp, float* red, float* stat) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int B = a.B, Vr = a.Vr, R = a.K - 1;
+  const int nw = (Vr + 31) / 32;
+  float* pv = lv + (size_t)B * Vr;
+  float* amax = stat;
+  float* lse = stat + kMaxBatch;
+  for (int i = threadIdx.x; i < B * Vr / 4; i += kFastThreads) {  // 4 lanes at a time
+    const int b = 4 * i / Vr, v0 = 4 * i - b * Vr;
+    const float4 h4 = __ldcg(reinterpret_cast<const float4*>(a.head_buf) + i);
+    float l4[4] = {h4.x, h4.y, h4.z, h4.w};
+    const float r_pen = samp[2 * kMaxBatch + b];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v = v0 + k;
+      if ((bits[b * nw + v / 32] >> (v % 32)) & 1u)
+        l4[k] = l4[k] < 0.f ? l4[k] * r_pen : l4[k] / r_pen;
+    }
+    const float4 o4 = make_float4(l4[0], l4[1], l4[2], l4[3]);
+    reinterpret_cast<float4*>(lv)[i] = o4;
+    if (blockIdx.x == 0)
+      reinterpret_cast<float4*>(a.logits_out + ((size_t)b * R + cb - 1) * Vr)[v0 / 4] = o4;
+  }
+  __syncthreads();
+  rows_softmax_stats(lv, B, Vr, red, amax, lse);
+  for (int i = threadIdx.x; i < B * Vr; i += kFastThreads) pv[i] = expf(lv[i] - lse[i / Vr]);
+  __syncthreads();
+
+  int i0, i1;
+  owned(Vr, i0, i1);
+  const int nl = i1 - i0;
+  for (int t = warp; t < B * nl; t += kFastWarps) {
+    const int b = t / nl, i = i0 + (t - b * nl);
+    const float* lb = lv + (size_t)b * Vr;
+    const float* pb = pv + (size_t)b * Vr;
+    const float li = lb[i];
+    const float4* l4 = reinterpret_cast<const float4*>(lb);
+    const float4* p4 = reinterpret_cast<const float4*>(pb);
+    float above = 0.f;
+#pragma unroll 2
+    for (int j = lane; j < Vr / 4; j += 32) {
+      const float4 lj = l4[j], pj = p4[j];
+      above += lj.x > li ? pj.x : 0.f;
+      above += lj.y > li ? pj.y : 0.f;
+      above += lj.z > li ? pj.z : 0.f;
+      above += lj.w > li ? pj.w : 0.f;
+    }
+    above = warp_sum(above);
+    if (lane == 0) {
+      const float tp = samp[kMaxBatch + b];
+      const bool keep = (above + pb[i] <= tp) || (li >= amax[b]) || (tp >= 1.0f);
+      cand[t] = (keep ? li : kNeg) / samp[b] + gum[t];
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += kFastThreads) {
+    float best = -FLT_MAX;
+    int best_i = 0x7fffffff;
+    for (int k = 0; k < nl; ++k) {
+      if (cand[b * nl + k] > best) {
+        best = cand[b * nl + k];
+        best_i = i0 + k;
+      }
+    }
+    __stcg(a.cand_v + (size_t)blockIdx.x * B + b, best);
+    __stcg(a.cand_i + (size_t)blockIdx.x * B + b, best_i);
+  }
+}
+
+// Every block merges the blocks' candidates: code[b] is the lane with the
+// highest score, ties to the lowest lane (torch.argmax's first maximum).
+// Block 0 writes it to codes[:, cb - 1].
+__device__ void merge_codes(const FastArgs& a, int cb, int* code) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int B = a.B;
+  for (int b = warp; b < B; b += kFastWarps) {
+    float best = -FLT_MAX;
+    int best_i = 0x7fffffff;
+    for (int k = lane; k < (int)gridDim.x; k += 32) {
+      const float v = __ldcg(a.cand_v + (size_t)k * B + b);
+      const int i = __ldcg(a.cand_i + (size_t)k * B + b);
+      if (v > best || (v == best && i < best_i)) {
+        best = v;
+        best_i = i;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
+      if (ov > best || (ov == best && oi < best_i)) {
+        best = ov;
+        best_i = oi;
+      }
+    }
+    if (lane == 0) {
+      code[b] = best_i;
+      if (blockIdx.x == 0) a.codes[b * (a.K - 1) + cb - 1] = best_i;
+    }
+  }
+  __syncthreads();
+}
+
+// Thread 0 records the global timer in the block's next clock slot.
+__device__ __forceinline__ void stamp(const FastArgs& a, int& n) {
+  if (threadIdx.x == 0 && n < a.clock_cap) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.clock[(size_t)blockIdx.x * a.clock_cap + n] = t;
+  }
+  ++n;
+}
+
+template <int MAXB>
+__global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float rstd[kMaxBatch];
+  __shared__ float stat[2 * kMaxBatch];
+  __shared__ float samp[3 * kMaxBatch];  // clamped temperature, top_p, penalty
+  __shared__ float red[2 * kMaxBatch * kFastWarps];
+  __shared__ int code[kMaxBatch];
+  __shared__ __nv_bfloat16 rope_s[kMaxPos * kMaxFastHeadDim];
+  __shared__ __align__(8) unsigned long long bars[2];  // one per weight slot
+  __shared__ int own[10];                              // owned rows of each kind
+
+  const int B = a.B, D = a.D, I = a.I, L = a.L, K = a.K, Vr = a.Vr, R = K - 1;
+  const int q_size = a.H * a.Dh;
+  const int max_k = D > q_size ? (D > I ? D : I) : (q_size > I ? q_size : I);
+  const size_t act = act_bytes(B, D, max_k, Vr);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* xf = reinterpret_cast<float*>(smem + xf_offset(B, D));
+  float* part = reinterpret_cast<float*>(smem + act);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + a.wslot_offset - bits_bytes(B, Vr) -
+                                               round16((size_t)B * ((Vr + gridDim.x - 1) /
+                                                                    gridDim.x) * sizeof(float)));
+  float* gum = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(bits) +
+                                        bits_bytes(B, Vr));
+  unsigned char* wsm = smem + a.wslot_offset;
+
+  // The residual rows this block owns: thread i < (rows) * B holds row
+  // xr0 + i / B of stream i % B (the launch checks that they fit).
+  int xr0, xr1;
+  owned(D, xr0, xr1);
+  const bool x_owner = (int)threadIdx.x < (xr1 - xr0) * B;
+  const int xj = threadIdx.x / B, xb = threadIdx.x - xj * B;
+  float x_own = 0.f;
+  auto publish_x = [&]() {
+    if (x_owner) __stcg(a.x + (size_t)xb * D + xr0 + xj, x_own);
+  };
+
+  // every barrier, with the block's arrival and departure times when the
+  // caller asked for them
+  int n_stamp = 0;
+  auto barrier = [&]() {
+    if (a.clock != nullptr) {
+      __syncthreads();
+      stamp(a, n_stamp);
+    }
+    grid.sync();
+    if (a.clock != nullptr) stamp(a, n_stamp);
+  };
+
+  // weight slots: `cur` holds (or is receiving) the current phase's rows;
+  // parity[s] is the phase of slot s's mbarrier that its next copy completes
+  int cur = 0;
+  unsigned parity[2] = {0u, 0u};
+  auto slot = [&](int s) { return wsm + (size_t)s * a.wslot_bytes; };
+  // at a weighted phase's start: wait for this phase's copy
+  auto begin = [&](int pos, int kind, int l) {
+    bar_wait(&bars[cur], parity[cur]);
+    parity[cur] ^= 1u;
+    return phase_span(a, kind, l, own);
+  };
+  // with two slots, once the phase's own reads have landed (so that they
+  // do not queue behind the copy), start the next phase's copy into the
+  // other slot; thread 0 issues it
+  auto prefetch = [&](int pos, int kind, int l) {
+    if (a.wslots == 2 && threadIdx.x == 0) {
+      int nk, nl;
+      next_weighted(a, pos, kind, l, nk, nl);
+      if (nk != kNoWeights)
+        issue_copy(phase_span(a, nk, nl, own), slot(cur ^ 1), &bars[cur ^ 1], D);
+    }
+  };
+  // at its end: with one slot, start the next phase's copy before the barrier
+  auto finish = [&](int pos, int kind, int l) {
+    if (a.wslots == 2) {
+      cur ^= 1;
+    } else {
+      int nk, nl;
+      next_weighted(a, pos, kind, l, nk, nl);
+      __syncthreads();
+      if (nk != kNoWeights) issue_copy(phase_span(a, nk, nl, own), slot(cur), &bars[cur], D);
+    }
+  };
+
+  if (a.clock != nullptr) stamp(a, n_stamp);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&bars[i])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < 5) {
+    const int n[5] = {q_size + 2 * a.Hkv * a.Dh, D, I, D, Vr};  // in WKind order
+    owned(n[threadIdx.x], own[2 * threadIdx.x], own[2 * threadIdx.x + 1]);
+  }
+  __syncthreads();
+  issue_copy(phase_span(a, kQkvW, 0, own), slot(0), &bars[0], D);
+  if (threadIdx.x < B) {
+    const int b = threadIdx.x;
+    code[b] = a.a0[b];
+    samp[b] = fmaxf(a.temp[b], 1e-5f);
+    samp[kMaxBatch + b] = a.top_p[b];
+    samp[2 * kMaxBatch + b] = a.rep[b];
+  }
+  for (int i = threadIdx.x; i < K * a.Dh; i += kFastThreads) rope_s[i] = a.rope[i];
+  __syncthreads();
+
+  for (int pos = 0; pos < K; ++pos) {
+    for (int l = 0; l < L; ++l) {
+      // phase 1: RMSNorm + W_qkv
+      Span sp = begin(pos, kQkvW, l);
+      if (l == 0 && pos > 1) merge_codes(a, pos - 1, code);  // position 1 embeds a0
+      stage_norm(a, l > 0 ? kFromX : (pos == 0 ? kFromH : kFromEmb), code,
+                 slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+      prefetch(pos, kQkvW, l);
+      if (l == 0) {
+        if (x_owner) x_own = xf[xb * D + xr0 + xj];
+        publish_x();
+      }
+      int S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+      store_rows<MAXB>(sp, slot(cur), part, S, B, a.qkv, sp.N);
+      finish(pos, kQkvW, l);
+      barrier();
+      if (pos == 0 && l == L - 1) {
+        // position 0's output is discarded: its last layer only fills the cache
+        if (blockIdx.x == 0) write_cache_row(a, l, pos, rope_s);
+        barrier();
+        break;
+      }
+
+      // phase 2: attention + W_o + residual
+      sp = begin(pos, kWoW, l);
+      attend_all(a, l, pos, rope_s, xs, [&]() { prefetch(pos, kWoW, l); });
+      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+      if (x_owner) x_own += row_value<MAXB>(sp, slot(cur), part, S, xj, xb).x;
+      publish_x();
+      finish(pos, kWoW, l);
+      barrier();
+
+      // phase 3: RMSNorm + W_1/W_3 SwiGLU
+      sp = begin(pos, kW13W, l);
+      stage_norm(a, kFromX, code, slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+      prefetch(pos, kW13W, l);
+      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+      store_rows<MAXB>(sp, slot(cur), part, S, B, a.hbuf, I);
+      finish(pos, kW13W, l);
+      barrier();
+
+      // phase 4: W_2 + residual
+      sp = begin(pos, kW2W, l);
+      for (int i = threadIdx.x; i < B * I / 4; i += kFastThreads) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(a.hbuf) + i);
+        reinterpret_cast<__nv_bfloat162*>(xs)[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+        reinterpret_cast<__nv_bfloat162*>(xs)[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+      }
+      __syncthreads();
+      prefetch(pos, kW2W, l);
+      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+      if (x_owner) x_own += row_value<MAXB>(sp, slot(cur), part, S, xj, xb).x;
+      publish_x();
+      finish(pos, kW2W, l);
+      barrier();
+    }
+    if (pos == 0) continue;
+
+    // phase 5: fast_norm + head over the first Vr rows; meanwhile the
+    // sampler's inputs for this position (penalty window, owned noise)
+    Span sp = begin(pos, kHeadW, 0);
+    int i0, i1;
+    owned(Vr, i0, i1);
+    const int nl = i1 - i0, nw = (Vr + 31) / 32;
+    for (int i = threadIdx.x; i < B * nw; i += kFastThreads) bits[i] = 0u;
+    float g_own = 0.f;  // the launch checks B * nl <= kFastThreads
+    if ((int)threadIdx.x < B * nl) {
+      const int b = threadIdx.x / nl;
+      g_own = __ldg(a.gumbel + ((size_t)b * R + pos - 1) * Vr + i0 + (threadIdx.x - b * nl));
+    }
+    int win[2] = {-1, -1};  // B * W <= 2 * kFastThreads window entries
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = threadIdx.x + e * kFastThreads;
+      if (i < B * a.W) {
+        const int b = i / a.W;
+        win[e] = b * Vr + __ldg(a.prev + ((size_t)b * R + pos - 1) * a.W + (i - b * a.W));
+        if (win[e] < b * Vr || win[e] >= (b + 1) * Vr) win[e] = -1;  // names no lane
+      }
+    }
+    stage_norm(a, kFromX, code, slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+    prefetch(pos, kHeadW, 0);
+    if ((int)threadIdx.x < B * nl) gum[threadIdx.x] = g_own;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (win[e] >= 0) {
+        const int b = win[e] / Vr, v = win[e] - b * Vr;
+        atomicOr(&bits[b * nw + v / 32], 1u << (v % 32));
+      }
+    }
+    const int S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+    store_rows<MAXB>(sp, slot(cur), part, S, B, a.head_buf, Vr);
+    finish(pos, kHeadW, 0);
+    barrier();
+
+    // phase 6: penalty, softmax, pairwise top-p and Gumbel score of owned lanes
+    sample_share(a, pos, reinterpret_cast<float*>(smem), part, bits, gum, samp, red, stat);
+    barrier();
+  }
+  merge_codes(a, K - 1, code);
+}
+
+template <int MAXB>
+cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
+  auto kern = fast_frame_kernel<MAXB>;
+  const int q_size = fa.H * fa.Dh, nqkv = q_size + 2 * fa.Hkv * fa.Dh;
+  int max_k = fa.D > q_size ? fa.D : q_size;
+  max_k = max_k > fa.I ? max_k : fa.I;
+  const int sms = num_sms();
+  // Shared memory is sized for one block per SM, the most rows per block:
+  // a larger grid only owns fewer.
+  auto rows = [&](int n) { return (size_t)(n + sms - 1) / sms; };
+  if ((rows(fa.D) > rows(fa.Vr) ? rows(fa.D) : rows(fa.Vr)) * fa.B > (size_t)kFastThreads)
+    return cudaErrorInvalidValue;
+  size_t slot = rows(nqkv) * fa.D;
+  const size_t phase_bytes[] = {rows(fa.D) * q_size, 2 * rows(fa.I) * fa.D, rows(fa.D) * fa.I,
+                                rows(fa.Vr) * fa.D};
+  for (size_t b : phase_bytes) slot = slot > b ? slot : b;
+  size_t max_rows = rows(nqkv);
+  for (int n : {fa.D, fa.I, fa.Vr}) max_rows = max_rows > rows(n) ? max_rows : rows(n);
+  slot += 2 * round16(max_rows * sizeof(float) + 16) + fa.D * sizeof(float);  // scales, norm
+  slot = round16(slot);
+  // segment partial sums: at most max(rows per block, warps) tasks; the
+  // sampler's per-lane scores reuse the same space
+  const size_t tasks = max_rows + kFastWarps;
+  const size_t base = act_bytes(fa.B, fa.D, max_k, fa.Vr) +
+                      round16(tasks * 2 * MAXB * sizeof(float)) + bits_bytes(fa.B, fa.Vr) +
+                      round16((size_t)fa.B * rows(fa.Vr) * sizeof(float));
+
+  // the device's and the kernel's shared memory limits, and the occupancy
+  // at the last size asked for, are looked up once
+  static size_t avail = 0, last_smem = 0;
+  static int per_sm = 0;
+  cudaError_t e;
+  if (avail == 0) {
+    int dev = 0, optin = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return e;
+    cudaFuncAttributes attr;
+    if ((e = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return e;
+    avail = (size_t)optin - attr.sharedSizeBytes;
+  }
+  fa.wslots = base + 2 * slot <= avail ? 2 : 1;
+  if (base + slot > avail) return cudaErrorInvalidValue;
+  fa.wslot_bytes = (int)slot;
+  fa.wslot_offset = (int)base;
+  const size_t smem = base + fa.wslots * slot;
+  if (smem != last_smem) {
+    if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kFastThreads, smem);
+    if (e != cudaSuccess) return e;
+    last_smem = smem;
+  }
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int grid = per_sm * sms;
+  if ((long long)grid * fa.B > cand_cap) return cudaErrorInvalidValue;
+  void* args[] = {&fa};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(grid),
+                                     dim3(kFastThreads), args, smem, st);
 }
 
 }  // namespace
@@ -123,59 +1073,71 @@ fast_sample_kernel(const float* __restrict__ head, const int* __restrict__ prev,
 // ptrs/dims in the order of the enums above; returns a cudaError_t.
 extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, void* stream) {
   using namespace fts;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims dm{d[kB], d[kD], d[kHeads], d[kHkv], d[kDh], d[kI], eps};
-  const int K = d[kK], L = d[kL], Vr = d[kVr], W = d[kW];
-  if (dm.Dh > kMaxHeadDim || dm.Dh % 2 != 0 || dm.H / dm.Hkv > kMaxGroup ||
-      dm.B > kMaxBatch || W > kMaxWindow)
+  FastArgs a;
+  a.B = d[kB]; a.K = d[kK]; a.L = d[kL]; a.D = d[kD]; a.H = d[kHeads]; a.Hkv = d[kHkv];
+  a.Dh = d[kDh]; a.I = d[kI]; a.Vr = d[kVr]; a.W = d[kW]; a.h_bf16 = d[kHBf16];
+  a.clock_cap = d[kClockCap];
+  a.eps = eps;
+  if (a.Dh > kMaxFastHeadDim || a.Dh % 2 != 0 || a.H % a.Hkv != 0 || a.B < 1 ||
+      a.B > kMaxBatch || a.W > kMaxWindow || a.K < 2 || a.K > kMaxPos ||
+      a.D % 16 != 0 || a.I % 16 != 0 || (a.H * a.Dh) % 16 != 0 || a.Vr % 4 != 0 ||
+      (a.Hkv * a.Dh) % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  const long long c_sh = (long long)K * dm.Dh, c_sb = c_sh * dm.Hkv;  // (L, B, Hkv, K, Dh)
-  float* x = static_cast<float*>(p[kXBuf]);
-  int* code = static_cast<int*>(p[kCodeBuf]);
-  cudaError_t e;
-  if ((e = cudaMemcpyAsync(x, p[kH], sizeof(float) * dm.B * dm.D, cudaMemcpyDeviceToDevice,
-                           st)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaMemcpyAsync(code, p[kA0], sizeof(int) * dm.B, cudaMemcpyDeviceToDevice, st)) !=
-      cudaSuccess)
-    return (int)e;
-  const size_t samp_smem = 2 * (size_t)Vr * sizeof(float);
-  if (samp_smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fast_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)samp_smem);
-    if (e != cudaSuccess) return (int)e;
+  a.h = p[kH];
+  a.a0 = static_cast<const int*>(p[kA0]);
+  a.prev = static_cast<const int*>(p[kPrev]);
+  a.gumbel = static_cast<const float*>(p[kGumbel]);
+  a.temp = static_cast<const float*>(p[kTemp]);
+  a.top_p = static_cast<const float*>(p[kTopP]);
+  a.rep = static_cast<const float*>(p[kRep]);
+  a.rope = static_cast<const __nv_bfloat16*>(p[kRope]);
+  a.attn_norm = static_cast<const float*>(p[kAttnNorm]);
+  a.ffn_norm = static_cast<const float*>(p[kFfnNorm]);
+  a.wqkv = static_cast<const int8_t*>(p[kWqkv]);
+  a.wqkv_s = static_cast<const float*>(p[kWqkvS]);
+  a.wo = static_cast<const int8_t*>(p[kWo]);
+  a.wo_s = static_cast<const float*>(p[kWoS]);
+  a.w1 = static_cast<const int8_t*>(p[kW1]);
+  a.w1_s = static_cast<const float*>(p[kW1S]);
+  a.w3 = static_cast<const int8_t*>(p[kW3]);
+  a.w3_s = static_cast<const float*>(p[kW3S]);
+  a.w2 = static_cast<const int8_t*>(p[kW2]);
+  a.w2_s = static_cast<const float*>(p[kW2S]);
+  a.fast_norm = static_cast<const float*>(p[kFastNorm]);
+  a.head = static_cast<const int8_t*>(p[kHead]);
+  a.head_s = static_cast<const float*>(p[kHeadS]);
+  a.emb = static_cast<const int8_t*>(p[kEmb]);
+  a.emb_s = static_cast<const float*>(p[kEmbS]);
+  a.codes = static_cast<int*>(p[kCodes]);
+  a.logits_out = static_cast<float*>(p[kLogitsOut]);
+  // scratch, each part a multiple of 4 floats: x (B, D), qkv, the SwiGLU
+  // hidden (B, I), the K and V caches (L, B, Hkv, K, Dh), the head logits
+  // (B, Vr), and the candidates' scores and lanes (cap each)
+  const int cap = d[kCandCap];
+  const long long parts[] = {(long long)a.B * a.D,
+                             (long long)a.B * (a.H + 2 * a.Hkv) * a.Dh,
+                             (long long)a.B * a.I,
+                             (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
+                             (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
+                             (long long)a.B * a.Vr, cap, cap};
+  float* at[8];
+  long long used = 0;
+  for (int i = 0; i < 8; ++i) {
+    at[i] = static_cast<float*>(p[kScratch]) + used;
+    used += (parts[i] + 3) / 4 * 4;
   }
-  for (int pos = 0; pos < K; ++pos) {
-    if (pos > 0) {
-      embed_kernel<<<dm.B, 256, 0, st>>>(code, static_cast<const int8_t*>(p[kEmb]),
-                                         static_cast<const float*>(p[kEmbS]), dm.D, x);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
-    for (int l = 0; l < L; ++l) {
-      const LayerPtrs lp = layer_at(p, kAttnNorm, dm, l);
-      float* kc = static_cast<float*>(p[kKCache]) + (size_t)l * dm.B * c_sb;
-      float* vc = static_cast<float*>(p[kVCache]) + (size_t)l * dm.B * c_sb;
-      // the token's key/value land in its own cache row, read by later positions
-      e = run_block<float>(lp, dm, x, static_cast<float*>(p[kQkvBuf]),
-                           static_cast<float*>(p[kOBuf]), static_cast<float*>(p[kHBuf]),
-                           nullptr, pos, static_cast<const __nv_bfloat16*>(p[kRope]), kc, vc,
-                           c_sb, c_sh, K, kc + (size_t)pos * dm.Dh, vc + (size_t)pos * dm.Dh,
-                           c_sb, c_sh, st);
-      if (e != cudaSuccess) return (int)e;
-    }
-    if (pos == 0) continue;  // position 0's output is discarded
-    float* head = static_cast<float*>(p[kHeadBuf]);
-    e = launch_qgemv<kStore>(x, dm.B, dm.D, static_cast<const float*>(p[kFastNorm]), eps,
-                             static_cast<const int8_t*>(p[kHead]),
-                             static_cast<const float*>(p[kHeadS]), nullptr, nullptr, Vr, head,
-                             st);
-    if (e != cudaSuccess) return (int)e;
-    fast_sample_kernel<<<dm.B, kFastSampThreads, samp_smem, st>>>(
-        head, static_cast<const int*>(p[kPrev]), static_cast<const float*>(p[kGumbel]),
-        static_cast<const float*>(p[kTemp]), static_cast<const float*>(p[kTopP]),
-        static_cast<const float*>(p[kRep]), static_cast<float*>(p[kLogitsOut]),
-        static_cast<int*>(p[kCodes]), code, K, Vr, W, pos);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  if (used > d[kScratchFloats]) return (int)cudaErrorInvalidValue;
+  a.x = at[0];
+  a.qkv = at[1];
+  a.hbuf = at[2];
+  a.kc = at[3];
+  a.vc = at[4];
+  a.head_buf = at[5];
+  a.cand_v = at[6];
+  a.cand_i = reinterpret_cast<int*>(at[7]);
+  a.clock = static_cast<unsigned long long*>(p[kClock]);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.B <= 1) return (int)launch_frame<1>(a, cap, st);
+  if (a.B <= 4) return (int)launch_frame<4>(a, cap, st);
+  return (int)launch_frame<16>(a, cap, st);
 }

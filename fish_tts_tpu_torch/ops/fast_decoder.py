@@ -16,8 +16,10 @@ with noise drawn by the caller.
 Numerics are the Pallas kernel's: activations round to bf16 before each
 int8 product, accumulation and the per-frame K/V cache are f32.
 
-``fast_decode_frame`` launches the CUDA kernels (``csrc/fast_decoder.cu``)
+``fast_decode_frame`` launches the CUDA kernel (``csrc/fast_decoder.cu``:
+one cooperative launch per frame, phases separated by grid-wide barriers)
 for CUDA tensors and runs ``fast_decode_frame_plain`` for CPU tensors only.
+The weights are checked and converted once per parameter set.
 """
 
 from __future__ import annotations
@@ -34,9 +36,16 @@ Params = dict[str, Any]
 
 NEG = -1e30  # the Pallas kernel's mask constant
 MAX_BATCH = 16
-MAX_WINDOW = 64  # csrc/fast_decoder.cu kMaxWindow
+MAX_WINDOW = 64    # csrc/fast_decoder.cu kMaxWindow
+MAX_POS = 12       # csrc/fast_decoder.cu kMaxPos: codebook positions per frame
+MAX_HEAD_DIM = 64  # csrc/fast_decoder.cu kMaxFastHeadDim: one RoPE pair per lane
+BLOCKS_PER_SM = 4  # 2048 threads per SM over 512 per block: the most the grid can hold
 
 launches = 0  # kernel launches, for showing that a run went through it
+# When set to a CUDA int64 tensor (blocks >= the grid, stamps), each block of
+# the kernel writes the global timer (ns) at its start and at its arrival at
+# and departure from every grid-wide barrier, in order.
+phase_clock: torch.Tensor | None = None
 
 
 def column(x, batch: int, device) -> torch.Tensor:
@@ -108,48 +117,46 @@ def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast
     return (torch.stack(codes, dim=1).to(torch.int32), torch.stack(logits_out, dim=1))
 
 
-def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, prev_rows,
-                      gumbel, temperature, top_p, repetition_penalty, *, window: int):
-    """Run the per-frame codebook loop for B <= 16 streams.
+_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 
-    h_fast (B, D) projected slow hidden; a0 (B,) first code; prev_rows
-    (B, K-1, W) int32 penalty windows; gumbel (B, K-1, Vr) f32; sampling
-    parameters scalar or (B, 1).  Returns (codes (B, K-1) int32, penalized
-    logits (B, K-1, Vr) f32).
-    """
-    if h_fast.device.type == "cpu":
-        return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
-                                       gumbel, temperature, top_p, repetition_penalty,
-                                       window=window)
-    global launches
-    B, D = h_fast.shape
-    K, Vr, L = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer
+# The weights of the last parameter set the kernel saw, checked and in the
+# kernel's types: (id(params), cfg, the tensors they came from, prepared).
+_prepared: tuple | None = None
+
+
+def _param_leaves(params: Params, rope_fast: torch.Tensor) -> tuple:
+    fl = params["fast_layers"]
+    return (rope_fast, fl["attention_norm"], fl["ffn_norm"], params["fast_norm"],
+            *(fl[k][part] for k in _MATRICES for part in ("q", "s")),
+            params["fast_output"]["q"], params["fast_output"]["s"],
+            params["fast_embeddings"]["q"], params["fast_embeddings"]["s"])
+
+
+def _prepare(params: Params, cfg: DualARConfig, rope_fast: torch.Tensor) -> list:
+    """The weight pointers of the kernel call in their order, checked once per
+    parameter set: again only when ``params`` is another dict or holds
+    another tensor than at the last call."""
+    global _prepared
+    leaves = _param_leaves(params, rope_fast)
+    if (_prepared is not None and _prepared[0] == id(params) and _prepared[1] == cfg
+            and all(a is b for a, b in zip(_prepared[2], leaves))):
+        return _prepared[3]
+    K, Vr, L, D = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer, cfg.fast_dim
     H, Hkv, Dh = cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim
     I = cfg.fast_intermediate_size
     q_size, kv_size = H * Dh, Hkv * Dh
-    W = window
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"fast_decode_frame: batch {B} outside 1..{MAX_BATCH}")
-    if not 1 <= W <= MAX_WINDOW:
-        raise ValueError(f"fast_decode_frame: window {W} outside 1..{MAX_WINDOW}")
     kernels.check_block_dims("fast_decode_frame", D, H, Hkv, Dh, I)
-    dev = h_fast.device
+    if Dh > MAX_HEAD_DIM or not 2 <= K <= MAX_POS:
+        raise ValueError(f"fast_decode_frame: head_dim {Dh} (<= {MAX_HEAD_DIM}) or "
+                         f"{K} codebooks (2..{MAX_POS}) not supported")
     fl = params["fast_layers"]
     head = params["fast_output"]
     emb = params["fast_embeddings"]
     C = emb["q"].shape[0]
-    h = h_fast.to(torch.float32).contiguous()
-    temp = column(temperature, B, dev)
-    tp = column(top_p, B, dev)
-    rep = column(repetition_penalty, B, dev)
     attn_norm = fl["attention_norm"].float().contiguous()
     ffn_norm = fl["ffn_norm"].float().contiguous()
     fast_norm = params["fast_norm"].float().contiguous()
     checks = [
-        ("h_fast", h, torch.float32, (B, D)),
-        ("a0", a0, torch.int32, (B,)),
-        ("prev_rows", prev_rows, torch.int32, (B, K - 1, W)),
-        ("gumbel", gumbel, torch.float32, (B, K - 1, Vr)),
         ("rope_fast", rope_fast, torch.bfloat16, (K, Dh // 2, 2)),
         ("attention_norm", attn_norm, torch.float32, (L, D)),
         ("ffn_norm", ffn_norm, torch.float32, (L, D)),
@@ -166,28 +173,79 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         checks.append((f"fast_layers.{k}.s", fl[k]["s"], torch.float32, (L, n_out, 1)))
     for name, t, dtype, shape in checks:
         kernels.require_cuda(name, t, dtype, shape)
+        if t.data_ptr() % 16:  # the kernel's bulk copies move 16-byte-aligned spans
+            raise ValueError(f"fast_decode_frame: {name} is not 16-byte aligned")
     if head["q"].shape[0] < Vr:
         raise ValueError("fast_decode_frame: fast_output has fewer than Vr rows")
+    weights = [rope_fast, attn_norm, ffn_norm,
+               *(fl[k][part] for k in _MATRICES for part in ("q", "s")),
+               fast_norm, head["q"], head["s"], emb["q"], emb["s"]]
+    _prepared = (id(params), cfg, leaves, weights)
+    return weights
 
-    f32 = dict(dtype=torch.float32, device=dev)
+
+def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, prev_rows,
+                      gumbel, temperature, top_p, repetition_penalty, *, window: int):
+    """Run the per-frame codebook loop for B <= 16 streams.
+
+    h_fast (B, D) projected slow hidden (f32 or bf16); a0 (B,) first code;
+    prev_rows (B, K-1, W) int32 penalty windows; gumbel (B, K-1, Vr) f32;
+    sampling parameters scalar or (B, 1).  Returns (codes (B, K-1) int32,
+    penalized logits (B, K-1, Vr) f32).
+
+    On CUDA tensors this is one cooperative launch of every block the card
+    holds; it raises if the card (or an MPS limit) refuses such a launch.
+    """
+    if h_fast.device.type == "cpu":
+        return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
+                                       gumbel, temperature, top_p, repetition_penalty,
+                                       window=window)
+    global launches
+    B, D = h_fast.shape
+    K, Vr, L = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer
+    H, Hkv, Dh = cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim
+    I = cfg.fast_intermediate_size
+    W = window
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"fast_decode_frame: batch {B} outside 1..{MAX_BATCH}")
+    if not 1 <= W <= MAX_WINDOW:
+        raise ValueError(f"fast_decode_frame: window {W} outside 1..{MAX_WINDOW}")
+    weights = _prepare(params, cfg, rope_fast)
+    h_fast = h_fast.contiguous()
+    dev = h_fast.device
+    temp = column(temperature, B, dev)
+    tp = column(top_p, B, dev)
+    rep = column(repetition_penalty, B, dev)
+    for name, t, dtype, shape in (
+            ("h_fast", h_fast, h_fast.dtype, (B, cfg.fast_dim)),
+            ("a0", a0, torch.int32, (B,)),
+            ("prev_rows", prev_rows, torch.int32, (B, K - 1, W)),
+            ("gumbel", gumbel, torch.float32, (B, K - 1, Vr))):
+        kernels.require_cuda(name, t, dtype, shape)
+    if h_fast.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fast_decode_frame: h_fast dtype {h_fast.dtype} not supported")
+    if h_fast.data_ptr() % 16:  # read 16 bytes at a time
+        h_fast = h_fast.clone()
+
     codes = torch.empty((B, K - 1), dtype=torch.int32, device=dev)
-    logits = torch.empty((B, K - 1, Vr), **f32)
-    scratch = [
-        torch.empty((B, D), **f32),                       # x
-        torch.empty((B, q_size + 2 * kv_size), **f32),    # qkv
-        torch.empty((B, q_size), **f32),                  # attention output
-        torch.empty((B, I), **f32),                       # SwiGLU hidden
-        torch.empty((L, B, Hkv, K, Dh), **f32),           # per-frame K cache
-        torch.empty((L, B, Hkv, K, Dh), **f32),           # per-frame V cache
-        torch.empty((B, Vr), **f32),                      # head logits
-        torch.empty((B,), dtype=torch.int32, device=dev),  # current code
-    ]
-    ptrs = [h, a0, prev_rows, gumbel, temp, tp, rep, rope_fast, attn_norm, ffn_norm,
-            fl["wqkv"]["q"], fl["wqkv"]["s"], fl["wo"]["q"], fl["wo"]["s"],
-            fl["w1"]["q"], fl["w1"]["s"], fl["w3"]["q"], fl["w3"]["s"],
-            fl["w2"]["q"], fl["w2"]["s"], fast_norm, head["q"], head["s"],
-            emb["q"], emb["s"], codes, logits, *scratch]
-    dims = [B, K, L, D, H, Hkv, Dh, I, Vr, W]
+    logits = torch.empty((B, K - 1, Vr), dtype=torch.float32, device=dev)
+    cand_cap = BLOCKS_PER_SM * kernels.num_sms(dev) * B
+    # one scratch buffer, carved by the kernel's entry: residual stream,
+    # qkv, SwiGLU hidden, per-frame K and V caches, head logits, and each
+    # block's best score and lane; each part rounded up to 4 floats
+    parts = (B * D, B * (H + 2 * Hkv) * Dh, B * I, L * B * Hkv * K * Dh,
+             L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap)
+    n_scratch = sum(-(-n // 4) * 4 for n in parts)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+    clock = phase_clock
+    if clock is not None:
+        kernels.require_cuda("phase_clock", clock, torch.int64)
+        if clock.dim() != 2 or clock.shape[0] < cand_cap // B:
+            raise ValueError("phase_clock: expected (blocks, stamps) with a row per block")
+    ptrs = [h_fast, a0, prev_rows, gumbel, temp, tp, rep, *weights, codes, logits, scratch,
+            clock]
+    dims = [B, K, L, D, H, Hkv, Dh, I, Vr, W, int(h_fast.dtype == torch.bfloat16), cand_cap,
+            0 if clock is None else clock.shape[1], n_scratch]
     kernels.launch("fts_fast_decode_frame", ptrs, dims, eps=cfg.norm_eps)
     launches += 1
     return codes, logits

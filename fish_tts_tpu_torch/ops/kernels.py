@@ -15,6 +15,7 @@ raises on a non-zero return.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -97,12 +98,13 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, tensors: list[torch.Tensor], dims: list[int],
+def launch(name: str, tensors: list[torch.Tensor | None], dims: list[int],
            eps: float | None = None) -> None:
-    """Call C entry ``name`` with the tensors' data pointers on the current
-    stream; raises on a CUDA error.  The caller keeps the tensors alive."""
+    """Call C entry ``name`` with the tensors' data pointers (None for a null
+    pointer) on the current stream; raises on a CUDA error.  The caller
+    keeps the tensors alive."""
     so = lib()
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
     ints = (ctypes.c_int * len(dims))(*dims)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     fn = getattr(so, name)
@@ -123,6 +125,12 @@ def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+
+
+@functools.cache
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 MAX_HEAD_DIM = 128  # csrc/common.cuh kMaxHeadDim

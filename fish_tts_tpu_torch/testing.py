@@ -5,12 +5,15 @@
 - ``make_s1_mini_bundle``: S1-mini widths and depth with the full-width
   codec and a byte-level vocabulary carrying the full special-token table,
   drawn from a seed on the given device in bf16.
+- ``fast_decision_margins``: the fast decoder's codes against its plain
+  version's, excusing a differing code only at a knife edge.
 
 Both write their ``.tiktoken`` vocabulary into a fresh temporary directory.
 """
 
 from __future__ import annotations
 
+import math
 import tempfile
 from pathlib import Path
 
@@ -29,6 +32,7 @@ from fish_tts_tpu_torch.models.tokenizer import (
     tiny_special_tokens,
     write_tiny_vocab,
 )
+from fish_tts_tpu_torch.ops.fast_decoder import NEG
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -52,6 +56,79 @@ def make_tiny_bundle(seed: int = 0):
     vparams = vocoder.init_vocoder_params(_generator(seed + 1, "cpu"), vcfg,
                                           dtype=torch.float32)
     return cfg, params, tokenizer, vcfg, vparams
+
+
+def _knife_edge(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float, top_p: float,
+                i: int, k: int, tol: float) -> bool:
+    """Whether logits that may each move by ``tol`` can turn the fast
+    sampler's pick from lane ``i`` to lane ``k``, judged on one position's
+    penalized ``logits`` (Vr,) of the reference: the two lanes' Gumbel
+    scores lie within 2 tol / t of each other, or one of them sits within
+    that movement of the top-p edge."""
+    l = logits.double()
+    t = max(temperature, 1e-5)
+    p = torch.softmax(l, dim=-1)
+    amax = l.max()
+    above = torch.where(l[None, :] > l[:, None], p[None, :], torch.zeros((), dtype=l.dtype))
+    mass = above.sum(dim=-1) + p  # the pairwise rule keeps a lane iff mass <= top_p
+    keep = (mass <= top_p) | (l >= amax) | (top_p >= 1.0)
+    score = torch.where(keep, l, torch.full_like(l, NEG)) / t + gumbel.double()
+    if keep[i] and keep[k] and abs(float(score[i] - score[k])) <= 2 * tol / t:
+        return True
+    if top_p >= 1.0:
+        return False
+    near_top = int((l >= amax - 2 * tol).sum())
+    for lane in (i, k):
+        # a shift of every logit by <= tol scales each probability by at most
+        # e^(2 tol) and can move the lanes within 2 tol of this one across it
+        near = (l - l[lane]).abs() <= 2 * tol
+        delta = (math.exp(2 * tol) - 1) * float(mass[lane]) + float(p[near].sum() - p[lane])
+        if abs(float(mass[lane]) - top_p) <= delta:
+            return True
+        if l[lane] >= amax - 2 * tol and near_top > 1:  # the argmax clause can change hands
+            return True
+    return False
+
+
+def fast_decision_margins(codes, codes_plain, logits, logits_plain, gumbel, temperature,
+                          top_p, tol: float) -> dict:
+    """Hold the fast decoder's codes and logits against its plain version's,
+    excusing a differing code only at a knife edge of the plain version.
+
+    codes, codes_plain (B, K-1); logits, logits_plain (B, K-1, Vr) penalized;
+    gumbel (B, K-1, Vr); temperature, top_p (B, 1) or scalars; ``tol`` the
+    absolute logit tolerance.  Per stream, positions up to the first differing
+    code must have logits within ``tol``; at that code the plain version's own
+    numbers must show a knife edge (``_knife_edge``), and later positions are
+    not compared, since their inputs differ.  Returns {"knife_edges": n,
+    "failures": [messages], "max_abs_err": largest logit difference compared,
+    "compared": positions compared}.
+    """
+    B, R = codes_plain.shape
+    temp = torch.as_tensor(temperature, dtype=torch.float32).reshape(-1).expand(B).tolist()
+    tp = torch.as_tensor(top_p, dtype=torch.float32).reshape(-1).expand(B).tolist()
+    codes, codes_plain = codes.cpu(), codes_plain.cpu()
+    logits, logits_plain, gumbel = logits.cpu().float(), logits_plain.cpu().float(), gumbel.cpu()
+    out = {"knife_edges": 0, "failures": [], "max_abs_err": 0.0, "compared": 0}
+    for b in range(B):
+        for r in range(R):
+            err = float((logits[b, r] - logits_plain[b, r]).abs().max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["compared"] += 1
+            if not err <= tol:
+                out["failures"].append(f"stream {b} position {r + 1}: logits differ by "
+                                       f"{err:.3g} > {tol:.3g}")
+                break
+            want, got = int(codes_plain[b, r]), int(codes[b, r])
+            if got == want:
+                continue
+            if _knife_edge(logits_plain[b, r], gumbel[b, r], temp[b], tp[b], want, got, tol):
+                out["knife_edges"] += 1
+            else:
+                out["failures"].append(f"stream {b} position {r + 1}: code {got} != {want} "
+                                       "with no knife edge in the reference")
+            break
+    return out
 
 
 def make_s1_mini_bundle(seed: int = 0, device="cuda", with_vocoder: bool = True):
