@@ -9,27 +9,34 @@ printing its own lines; any failure raises and the script exits non-zero:
 2. build: ``nvcc`` builds the kernels from ``fish_tts_tpu_torch/csrc`` and
    ``g++`` the BPE encoder, both from the checkout's sources.
 3. kernels: each kernel at S1-mini shapes against its plain PyTorch version
-   on the same inputs on the card, the sampler and the slow stack at B = 1
-   and 4, the fast decoder at B = 1, 4 and 16 (its limit).  Sampler tokens
-   must be equal; slow-stack hidden state, new K/V and logits within 1e-2 of
-   the plain version relative to its largest magnitude, layer by layer (the
-   kernels sum in another order, and an activation that rounds to the other
-   bf16 neighbour moves a product by 2^-8), and the whole 28-layer call
-   within STACK_TOL.  The fast decoder: two calls on the same inputs
-   bit-equal; per stream, logits within the same 1e-2 and codes equal up to
-   the first differing code, which must sit on a knife edge of the plain
-   version's own numbers (``testing.fast_decision_margins``; the count of
-   knife edges is printed); and its time by phase, from the kernel's
-   barrier clock.  Median times of the kernel and the plain version (CUDA
-   events) beside the least time the card could take (bytes over 3.35 TB/s
-   or operations over the peak rate of their type, whichever is larger).
+   on the same inputs on the card: the sampler at B = 1 and 4; the slow
+   stack in SLOW_CASES (B = 1, 4 and 16, its limit; one B = 4 call at the
+   edge positions: no live rows, clamped at read_len, off the chunk grid;
+   a 1024-row read of a 2048-row cache at positions 661-1000); the fast
+   decoder at B = 1, 4 and 16 (its limit).  Sampler tokens must be equal.
+   Slow stack: two calls on the same inputs bit-equal; hidden state, new K/V
+   and logits within 1e-2 of the plain version relative to its largest
+   magnitude, layer by layer (the kernels sum in another order, and an
+   activation that rounds to the other bf16 neighbour moves a product by
+   2^-8), and the whole 28-layer call within STACK_TOL.  The fast decoder:
+   two calls on the same inputs bit-equal; per stream, logits within the
+   same 1e-2 and codes equal up to the first differing code, which must sit
+   on a knife edge of the plain version's own numbers
+   (``testing.fast_decision_margins``; the count of knife edges is
+   printed).  The slow stack at B = 1 and 16 and the fast decoder at each B
+   print their time by phase, from the kernels' barrier clocks.  Median
+   times of the kernel and the plain version (CUDA events) beside the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate of their type, whichever is larger).
 4. main: first the engine at the tiny config on the card against the same
    engine on the CPU with the same noise (equal codes over 40 frames); then
    ``FishTTS(device="cuda", precision="int8")`` with random S1-mini
    weights (full 28-layer widths) and the full-width codec;
-   ``synthesize(text, max_tokens=MAX_TOKENS)``.  Checks the WAV header, the
-   sample count ((frames - 1) x 2048) and finite audio; prints frames/s, RTF
-   and each kernel's launch count in that call, all of which must be > 0.
+   ``synthesize(text, max_tokens=MAX_TOKENS)``, and the same with a
+   ``VoiceProfile`` of seeded random codes shaped (10, 661), a cloned
+   voice's reference.  Checks the WAV header, the sample count ((frames - 1)
+   x 2048) and finite audio; prints frames/s, RTF and each kernel's launch
+   count in each call, all of which must be > 0.
 
 Then one JSON line of per-kernel records (main-path shapes, B = 1) and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -56,6 +63,7 @@ TEXT = "The quick brown fox jumps over the lazy dog, and then it rests in the su
 MAX_TOKENS = 100
 READ_LEN = 256   # the kv bucket a short synthesize reads (EngineConfig.kv_bucket_step)
 CACHE_LEN = 512  # the smallest cache allocation (engine.generate.CACHE_FLOOR)
+REF_FRAMES = 661  # frames in a shipped voice profile (tests/test_api.py::test_gura_profile_loads)
 WINDOW = 16      # EngineConfig.rep_penalty_window
 REL_TOL = 1e-2
 # The whole 28-layer slow stack against its plain version: once one activation
@@ -66,6 +74,18 @@ REL_TOL = 1e-2
 # at 5e-2 and each layer, on the same input, at REL_TOL.
 STACK_TOL = 5e-2
 SAMPLING = (0.7, 0.8, 1.1)  # temperature, top_p, repetition penalty
+# The slow-stack checks: (label, B, cache rows, read_len, positions: a list,
+# or a [low, high) range drawn from the seed).
+SLOW_CASES = [
+    ("B=1", 1, CACHE_LEN, READ_LEN, (READ_LEN // 2, READ_LEN)),
+    ("B=4", 4, CACHE_LEN, READ_LEN, (READ_LEN // 2, READ_LEN)),
+    ("B=16", 16, CACHE_LEN, READ_LEN, (READ_LEN // 2, READ_LEN)),
+    # no live rows, clamped at read_len, and two rows past a 64-row chunk
+    ("edge B=4", 4, CACHE_LEN, READ_LEN, [0, READ_LEN + 44, 130, 192]),
+    # the depth a voice cloned from a 661-frame reference reaches
+    ("long B=1", 1, 2048, 1024, (REF_FRAMES, 1001)),
+]
+SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by phase
 
 # H100 SXM data sheet (dense): memory rate, bf16 tensor-core rate and f32
 # CUDA-core rate.
@@ -157,17 +177,20 @@ def _qdot_f64(x, w):
     return ((xb @ w["q"].double().transpose(0, 1)) * w["s"][:, 0].double()).float()
 
 
-def check_slow_stack(params, cfg, rope, B: int, gen, dev):
+def check_slow_stack(params, cfg, rope, case, gen, dev):
     import torch
 
     from fish_tts_tpu_torch.models import dual_ar
     from fish_tts_tpu_torch.ops import slow_stack as ss
 
-    shape = (cfg.n_layer, B, cfg.n_local_heads, CACHE_LEN, cfg.head_dim)
+    label, B, cache_len, read_len, positions = case
+    shape = (cfg.n_layer, B, cfg.n_local_heads, cache_len, cfg.head_dim)
     kv = {k: (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
           for k in ("k", "v")}
-    pos = torch.randint(READ_LEN // 2, READ_LEN, (B,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    if isinstance(positions, tuple):
+        pos = torch.randint(*positions, (B,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        pos = torch.tensor(positions, device=dev, dtype=torch.int32)
     ids = dual_ar.TokenIds(cfg.vocab_size - cfg.codebook_size, cfg.vocab_size - 1, 4)
     tokens = torch.randint(0, cfg.codebook_size, (B, 1 + cfg.num_codebooks, 1), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -175,19 +198,26 @@ def check_slow_stack(params, cfg, rope, B: int, gen, dev):
     x = dual_ar.embed_inputs(params, cfg, ids, tokens)[:, 0].contiguous()
 
     def kern():
-        return ss.slow_stack_step(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+        return ss.slow_stack_step(params, cfg, rope, x, kv, pos, read_len=read_len)
+
+    def plain():
+        return ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=read_len)
 
     # the whole stack in one call against the plain version
     got = kern()
-    want = ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+    got2 = kern()
+    want = plain()
     torch.cuda.synchronize()
+    if not all(torch.equal(g_, g2) for g_, g2 in zip(got, got2)):
+        fail(f"slow_stack_step {label}: two calls on the same inputs differ")
     full = {}
     for name, g_, w_ in zip(("hidden", "new_k", "new_v", "logits"), got, want):
         if g_.shape != w_.shape:
-            fail(f"slow_stack_step B={B}: {name} shape {tuple(g_.shape)} != {tuple(w_.shape)}")
+            fail(f"slow_stack_step {label}: {name} shape {tuple(g_.shape)} != "
+                 f"{tuple(w_.shape)}")
         full[name] = rel_err(g_, w_)
         if not full[name][1] <= STACK_TOL:
-            fail(f"slow_stack_step B={B}: {name} relative error {full[name][1]:.3g} "
+            fail(f"slow_stack_step {label}: {name} relative error {full[name][1]:.3g} "
                  f"> {STACK_TOL} over {cfg.n_layer} layers")
     # layer by layer: the kernel on one layer's weights and cache against the
     # plain version on the same input (the kernel's own output of the layer
@@ -197,27 +227,26 @@ def check_slow_stack(params, cfg, rope, B: int, gen, dev):
     for i in range(cfg.n_layer):
         p1 = dict(params, layers=ss.layer(params["layers"], slice(i, i + 1)))
         kv1 = {k: v[i:i + 1] for k, v in kv.items()}
-        g1 = ss.slow_stack_step(p1, one, rope, h, kv1, pos, read_len=READ_LEN)
-        w1 = ss.slow_stack_step_plain(p1, one, rope, h, kv1, pos, read_len=READ_LEN)
+        g1 = ss.slow_stack_step(p1, one, rope, h, kv1, pos, read_len=read_len)
+        w1 = ss.slow_stack_step_plain(p1, one, rope, h, kv1, pos, read_len=read_len)
         names = ("hidden", "new_k", "new_v") + (("logits",) if i == cfg.n_layer - 1 else ())
         for j, name in enumerate(names):
             rel = rel_err(g1[j], w1[j])[1]
             layer_err = max(layer_err, rel)
             if not rel <= REL_TOL:
-                fail(f"slow_stack_step B={B} layer {i}: {name} relative error {rel:.3g} "
+                fail(f"slow_stack_step {label} layer {i}: {name} relative error {rel:.3g} "
                      f"> {REL_TOL}")
         h = g1[0][:, 0].contiguous()
     # the yardstick for STACK_TOL: the plain version against itself with its
     # products summed in float64, the bf16 rounding of each activation kept
     with mock.patch.object(ss, "qdot", _qdot_f64):
-        want64 = ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=READ_LEN)
+        want64 = plain()
     self_rel = max(rel_err(w64, w_)[1] for w64, w_ in zip(want64, want))
     ms = time_ms(kern, 20)
-    plain_ms = time_ms(lambda: ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos,
-                                                        read_len=READ_LEN), 3, warm=1)
+    plain_ms = time_ms(plain, 3, warm=1)
     lw = params["layers"]
     weights = [lw[k][part] for k in ("wqkv", "wo", "w1", "w3", "w2") for part in ("q", "s")]
-    rows = int(torch.clamp(pos.long(), max=READ_LEN).sum())
+    rows = int(torch.clamp(pos.long(), max=read_len).sum())
     row_bytes = 2 * cfg.n_local_heads * cfg.head_dim * kv["k"].element_size()  # K and V
     read = (nbytes(x, pos, *weights, lw["attention_norm"], lw["ffn_norm"], params["norm"],
                    params["embeddings"]["q"], params["embeddings"]["s"])
@@ -228,9 +257,13 @@ def check_slow_stack(params, cfg, rope, B: int, gen, dev):
     attn_ops = 4 * cfg.n_layer * rows * cfg.n_head * cfg.head_dim
     bms, by = bound(read + written, 2 * B * n_weights + attn_ops, BF16_OPS_PER_S)
     err = max(e[0] for e in full.values())
-    note = (f"per layer rel <= {layer_err:.2e}; whole stack "
+    note = (f"positions {pos.tolist()}, read_len {read_len}; two calls bit-equal; per layer "
+            f"rel <= {layer_err:.2e}; whole stack "
             + ", ".join(f"{k} rel {v[1]:.2e}" for k, v in full.items())
             + f" (plain with float64 sums against plain: rel {self_rel:.2e})")
+    if label in SLOW_PHASE_CASES:
+        for line in slow_phase_breakdown(kern, cfg, dev):
+            print(f"kernel slow_stack_step {label} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err, note=note)
 
 
@@ -249,28 +282,34 @@ def fast_phase_labels(cfg) -> list[str]:
     return labels
 
 
-def fast_phase_breakdown(kern, cfg, dev) -> list[str]:
-    """One call of the fast-decoder kernel with its barrier clock on.  Per
-    phase: from the first block leaving the barrier before it to the last
-    block arriving at its own (the phase's span), then from that last
-    arrival to the last departure (the barrier's release), summed over the
-    frame."""
+def slow_phase_labels(cfg) -> list[str]:
+    """The slow-stack kernel's phases, one per grid-wide barrier, in order
+    (csrc/slow_stack.cu; the last barrier runs only with the clock on)."""
+    layer = ["RMSNorm + W_qkv", "attention", "W_o + residual", "RMSNorm + W_1/W_3",
+             "W_2 + residual"]
+    return layer * cfg.n_layer + ["final norm + head"]
+
+
+def phase_breakdown(kern, module, labels: list[str], dev) -> list[str]:
+    """One call of a persistent kernel with its barrier clock
+    (``module.phase_clock``) on.  Per phase: from the first block leaving
+    the barrier before it to the last block arriving at its own (the
+    phase's span), then from that last arrival to the last departure (the
+    barrier's release), summed over the call."""
     import torch
 
-    from fish_tts_tpu_torch.ops import fast_decoder as fd
     from fish_tts_tpu_torch.ops import kernels
 
-    labels = fast_phase_labels(cfg)
     n = len(labels)
-    clock = torch.zeros((fd.BLOCKS_PER_SM * kernels.num_sms(dev), 1 + 2 * n),
+    clock = torch.zeros((module.BLOCKS_PER_SM * kernels.num_sms(dev), 1 + 2 * n),
                         dtype=torch.int64, device=dev)
-    fd.phase_clock = clock
+    module.phase_clock = clock
     try:
         kern()
         kern()
         torch.cuda.synchronize()
     finally:
-        fd.phase_clock = None
+        module.phase_clock = None
     c = clock[clock[:, 0] > 0].double().cpu()
     start, arrive, leave = c[:, 0], c[:, 1::2], c[:, 2::2]
     prev_leave = torch.cat([start[:, None], leave[:, :-1]], dim=1)
@@ -286,9 +325,23 @@ def fast_phase_breakdown(kern, cfg, dev) -> list[str]:
     lines = [f"{c.shape[0]} blocks, {n} barriers, {total:.1f} us from the first start "
              f"to the last barrier"]
     for label, (count, sp, rel) in sums.items():
-        lines.append(f"{label:20s} x{count:3d}: span {sp:8.1f} us ({sp / count:6.2f} each), "
+        lines.append(f"{label:24s} x{count:3d}: span {sp:8.1f} us ({sp / count:6.2f} each), "
                      f"release {rel:7.1f} us ({rel / count:5.2f} each)")
+    rel_all = release.sum().item()
+    lines.append(f"{'barrier releases':24s} x{n:3d}: {rel_all:8.1f} us ({rel_all / n:5.2f} each)")
     return lines
+
+
+def fast_phase_breakdown(kern, cfg, dev) -> list[str]:
+    from fish_tts_tpu_torch.ops import fast_decoder as fd
+
+    return phase_breakdown(kern, fd, fast_phase_labels(cfg), dev)
+
+
+def slow_phase_breakdown(kern, cfg, dev) -> list[str]:
+    from fish_tts_tpu_torch.ops import slow_stack as ss
+
+    return phase_breakdown(kern, ss, slow_phase_labels(cfg), dev)
 
 
 def fast_inputs(cfg, B: int, gen, dev):
@@ -367,7 +420,7 @@ KERNELS = [
 ]
 
 
-def phase_kernels(dev, batches=(1, 4), fast_batches=(1, 4, 16)):
+def phase_kernels(dev, batches=(1, 4), fast_batches=(1, 4, 16), slow_cases=SLOW_CASES):
     import torch
 
     from fish_tts_tpu_torch.models.dual_ar import make_rope_tables
@@ -379,20 +432,22 @@ def phase_kernels(dev, batches=(1, 4), fast_batches=(1, 4, 16)):
     rope = make_rope_tables(cfg, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
-    results = {}
-    for B in sorted(set(batches) | set(fast_batches)):
-        rows = {}
-        if B in batches:
-            rows["sample_slow"] = check_sampler(B, gen, dev)
-            rows["slow_stack_step"] = check_slow_stack(params, cfg, rope["slow"], B, gen, dev)
-        if B in fast_batches:
-            rows["fast_decode_frame"] = check_fast_decoder(params, cfg, rope["fast"], B, gen,
-                                                           dev)
-        for name, row in rows.items():
-            print(f"kernel {name} B={B}: {row['note']}; kernel {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})", flush=True)
-        results[B] = rows
+    results = {name: {} for name, _, _ in KERNELS}
+
+    def report(name, label, row):
+        print(f"kernel {name} {label}: {row['note']}; kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        results[name][label] = row
+
+    for B in batches:
+        report("sample_slow", f"B={B}", check_sampler(B, gen, dev))
+    for case in slow_cases:
+        report("slow_stack_step", case[0], check_slow_stack(params, cfg, rope["slow"], case,
+                                                            gen, dev))
+    for B in fast_batches:
+        report("fast_decode_frame", f"B={B}",
+               check_fast_decoder(params, cfg, rope["fast"], B, gen, dev))
     del params
     torch.cuda.empty_cache()
     return results
@@ -434,8 +489,7 @@ def phase_main(dev, profile_dir=None):
     import numpy as np
     import torch
 
-    from fish_tts_tpu_torch import FishTTS
-    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
+    from fish_tts_tpu_torch import FishTTS, VoiceProfile
     from fish_tts_tpu_torch.testing import make_s1_mini_bundle
 
     check_tiny_engine(dev)
@@ -466,40 +520,62 @@ def phase_main(dev, profile_dir=None):
 
     tts.engine.generate_long, tts._decode_codes = generate_long, decode
 
+    launches = synthesize_once(tts, seen, "synthesize")
+    # a cloned voice: the reference's codes come before the text's frames;
+    # row 0 semantic, the others residual codes
+    cfg, rng = tts._cfg, np.random.default_rng(SEED)
+    codes = rng.integers(0, cfg.residual_codebook_size, (cfg.num_codebooks, REF_FRAMES))
+    codes[0] = rng.integers(0, cfg.codebook_size, REF_FRAMES)
+    ref = VoiceProfile(codes=codes, text="A reference transcript read by the voice to clone.")
+    synthesize_once(tts, seen, f"synthesize with a {REF_FRAMES}-frame reference",
+                    references=[ref])
+    if profile_dir is not None:
+        profile_synthesize(tts, Path(profile_dir), seen["frames"])
+    return launches
+
+
+def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
+    """One ``synthesize`` call with every kernel's launch count set to 0 just
+    before it; checks the WAV and the launches and prints frames/s and RTF.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
+
     modules = (sampler_kernel, slow_stack, fast_decoder)
     for m in modules:
         m.launches = 0
     t = time.perf_counter()
-    wav = tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
-                         repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+    wav = tts.synthesize(TEXT, references=references, temperature=SAMPLING[0],
+                         top_p=SAMPLING[1], repetition_penalty=SAMPLING[2],
+                         max_tokens=MAX_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {name: m.launches for (name, _, _), m in zip(KERNELS, modules)}
 
     codes, audio = seen["codes"], seen["audio"]
-    frames = codes.shape[1] + 1  # generate_long strips the final frame
+    seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
     hop = tts._vocoder_cfg.frame_length
     with wave.open(io.BytesIO(wav)) as w:
         header = (w.getnchannels(), w.getsampwidth(), w.getframerate())
         n = w.getnframes()
     if wav[:4] != b"RIFF" or header != (1, 2, tts.sample_rate):
-        fail(f"main: bad WAV header {wav[:4]!r} {header}")
+        fail(f"main: {label}: bad WAV header {wav[:4]!r} {header}")
     if codes.shape[0] != tts._cfg.num_codebooks or frames < 2:
-        fail(f"main: codes of shape {codes.shape}")
+        fail(f"main: {label}: codes of shape {codes.shape}")
     if n != (frames - 1) * hop or audio.shape != (n,):
-        fail(f"main: {n} samples for {frames} frames, want {(frames - 1) * hop}")
+        fail(f"main: {label}: {n} samples for {frames} frames, want {(frames - 1) * hop}")
     if not np.isfinite(audio).all():
-        fail("main: audio is not finite")
+        fail(f"main: {label}: audio is not finite")
     if not all(v > 0 for v in launches.values()):
-        fail(f"main: a kernel of the path did not run: {launches}")
+        fail(f"main: {label}: a kernel of the path did not run: {launches}")
     audio_s = n / tts.sample_rate
-    print(f"main: synthesize -> {len(wav)} WAV bytes, {frames} frames, {n} samples, "
+    print(f"main: {label} -> {len(wav)} WAV bytes, {frames} frames, {n} samples, "
           f"audio peak {float(np.abs(audio).max()):.4f}; {wall:.3f} s wall, "
           f"generation {seen['gen_s']:.3f} s = {frames / seen['gen_s']:.1f} frames/s, "
           f"RTF {wall / audio_s:.4f}", flush=True)
-    print(f"main: kernel launches {json.dumps(launches)}", flush=True)
-    if profile_dir is not None:
-        profile_synthesize(tts, Path(profile_dir), frames)
+    print(f"main: {label}: kernel launches {json.dumps(launches)}", flush=True)
     return launches
 
 
@@ -577,7 +653,7 @@ def main() -> int:
 
     records = []
     for name, src, replaces in KERNELS:
-        row = results[1][name]
+        row = results[name]["B=1"]
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"],

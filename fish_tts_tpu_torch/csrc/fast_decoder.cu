@@ -54,7 +54,7 @@
 // a stale L1 line.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "persistent.cuh"
 
 enum {
   kH, kA0, kPrev, kGumbel, kTemp, kTopP, kRep, kRope,
@@ -72,8 +72,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kFastThreads = 512;
-constexpr int kFastWarps = kFastThreads / 32;
+constexpr int kFastThreads = kThreads;
+constexpr int kFastWarps = kWarps;
 constexpr int kMaxWindow = 64;
 constexpr int kMaxPos = 12;           // codebook positions per frame
 constexpr int kMaxFastHeadDim = 64;   // one RoPE pair per lane
@@ -121,8 +121,6 @@ struct FastArgs {
   float eps;
 };
 
-__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
-
 // Dynamic shared memory, in order:
 //   act    one of: the bf16 staging of a GEMV's input (B x its K); that of a
 //          normed input (B x D) with the f32 input itself at xf_offset; the
@@ -144,56 +142,6 @@ __host__ __device__ inline size_t act_bytes(int B, int D, int max_k, int Vr) {
 }
 __host__ __device__ inline size_t bits_bytes(int B, int Vr) {
   return round16((size_t)B * ((Vr + 31) / 32) * sizeof(unsigned));
-}
-
-// The contiguous range [r0, r1) of N rows (or lanes) that this block owns.
-__device__ __forceinline__ void owned(int N, int& r0, int& r1) {
-  r0 = (int)(blockIdx.x * (unsigned)N / gridDim.x);
-  r1 = (int)((blockIdx.x + 1) * (unsigned)N / gridDim.x);
-}
-
-// Segments a row's K is cut into: more while the block has warps to spare
-// and each segment keeps at least two 16-byte chunks per lane.
-__device__ __forceinline__ int seg_count(int N, int K) {
-  const int nr_max = (N + gridDim.x - 1) / gridDim.x;
-  int S = 1;
-  while (nr_max * S * 2 <= kFastWarps && (K / (S * 2)) % 16 == 0 && K / (S * 2) >= 1024) S *= 2;
-  return S;
-}
-
-// The weights of one phase: its (N, K) int8 matrix and scales at layer l,
-// the SwiGLU up matrix beside W_1, the RMSNorm weight of its input (or
-// none), and the rows this block owns.
-struct Span {
-  const int8_t* w;
-  const float* s;
-  const int8_t* wu;
-  const float* su;
-  const float* norm;
-  int N, K, r0, r1;
-};
-
-// Slot layout (a bulk copy moves 16-byte-aligned spans): the owned rows of
-// w, then of wu (r1 - r0 rows of K bytes each), the 16-byte-aligned span
-// holding s[r0, r1), the same for su, then the D-float RMSNorm weight.
-__device__ __forceinline__ int rows_bytes(const Span& sp) { return (sp.r1 - sp.r0) * sp.K; }
-__device__ __forceinline__ int scale_region(const Span& sp) {
-  return (int)round16((size_t)(sp.r1 - sp.r0) * sizeof(float) + 16);
-}
-__device__ __forceinline__ const float* aligned_down(const float* p) {
-  return reinterpret_cast<const float*>(reinterpret_cast<size_t>(p) & ~(size_t)15);
-}
-// s[r0 + j] is slot_scales(...)[j]; su[r0 + j] is slot_scales(..., true)[j].
-__device__ __forceinline__ const float* slot_scales(const Span& sp, const unsigned char* slot,
-                                                    bool up = false) {
-  const int nmat = sp.wu != nullptr ? 2 : 1;
-  const float* src = up ? sp.su : sp.s;
-  const unsigned char* region = slot + nmat * rows_bytes(sp) + (up ? scale_region(sp) : 0);
-  return reinterpret_cast<const float*>(region) + (src + sp.r0 - aligned_down(src + sp.r0));
-}
-__device__ __forceinline__ const float* slot_norm(const Span& sp, const unsigned char* slot) {
-  const int nmat = sp.wu != nullptr ? 2 : 1;
-  return reinterpret_cast<const float*>(slot + nmat * (rows_bytes(sp) + scale_region(sp)));
 }
 
 // own[2 * kind], own[2 * kind + 1]: the rows this block owns in each kind.
@@ -246,218 +194,6 @@ __device__ void next_weighted(const FastArgs& a, int pos, int kind, int l, int& 
     nkind = pos + 1 < a.K ? kQkvW : kNoWeights;
     nl = 0;
   }
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// One bulk copy of `bytes` (a multiple of 16) by the copy engine, counted
-// on the slot's mbarrier.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Block until the slot's mbarrier completes the phase of the given parity.
-__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// Thread 0 starts the copy engine on the owned rows, scales and norm
-// weight of a phase into a slot, all counted on the slot's mbarrier.  The
-// slot's previous readers have passed a block barrier.
-__device__ void issue_copy(const Span& sp, unsigned char* slot, unsigned long long* bar, int D) {
-  if (threadIdx.x != 0) return;
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  const int nmat = sp.wu != nullptr ? 2 : 1;
-  const unsigned rows = (unsigned)rows_bytes(sp);
-  const bool any = sp.r1 > sp.r0;
-  const float* s_lo = aligned_down(sp.s + sp.r0);
-  const unsigned s_bytes =
-      any ? (unsigned)round16(reinterpret_cast<size_t>(sp.s + sp.r1) -
-                              reinterpret_cast<size_t>(s_lo))
-          : 0u;
-  const float* su_lo = nmat == 2 ? aligned_down(sp.su + sp.r0) : nullptr;
-  const unsigned su_bytes =
-      any && nmat == 2
-          ? (unsigned)round16(reinterpret_cast<size_t>(sp.su + sp.r1) -
-                              reinterpret_cast<size_t>(su_lo))
-          : 0u;
-  const unsigned norm_bytes = sp.norm != nullptr ? (unsigned)(D * sizeof(float)) : 0u;
-  const unsigned total = nmat * rows + s_bytes + su_bytes + norm_bytes;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(total)
-               : "memory");
-  unsigned char* sreg = slot + nmat * rows;
-  if (rows > 0) {
-    bulk_copy(slot, sp.w + (size_t)sp.r0 * sp.K, rows, bar);
-    if (nmat == 2) bulk_copy(slot + rows, sp.wu + (size_t)sp.r0 * sp.K, rows, bar);
-  }
-  if (s_bytes > 0) bulk_copy(sreg, s_lo, s_bytes, bar);
-  if (su_bytes > 0) bulk_copy(sreg + scale_region(sp), su_lo, su_bytes, bar);
-  if (norm_bytes > 0)
-    bulk_copy(const_cast<float*>(slot_norm(sp, slot)), sp.norm, norm_bytes, bar);
-}
-
-// f[j] = (float)int8 byte j of v, exactly: the byte (biased by 128) goes
-// into the low mantissa bits of 2^23 by a byte permute, and one add takes
-// 2^23 + 128 away; cheaper than the quarter-rate int-to-float convert.
-__device__ __forceinline__ void int8x16_to_float(const int4& v, float* f) {
-  const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const unsigned u = w[q] ^ 0x80808080u;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      f[4 * q + k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | k)) - 8388736.0f;
-  }
-}
-
-// acc[b] += sum_j x[b, k0 + j] * w[j] over one 16-byte chunk of a row (and
-// the same for the SwiGLU up row); xk points at x[0, k0] in the staging.
-template <int MAXB, bool UP>
-__device__ __forceinline__ void fma_chunk(const int4& wv, const int4& uv,
-                                          const __nv_bfloat16* xk, int K, int B, float* acc,
-                                          float* accu) {
-  float wf[16], uf[16];
-  int8x16_to_float(wv, wf);
-  if (UP) int8x16_to_float(uv, uf);
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    if (b < B) {
-      const uint4* xp = reinterpret_cast<const uint4*>(xk + (size_t)b * K);
-      const uint4 xa = xp[0], xb = xp[1];
-      const __nv_bfloat162* h2a = reinterpret_cast<const __nv_bfloat162*>(&xa);
-      const __nv_bfloat162* h2b = reinterpret_cast<const __nv_bfloat162*>(&xb);
-      float xf[16];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fa = __bfloat1622float2(h2a[j]);
-        const float2 fb = __bfloat1622float2(h2b[j]);
-        xf[2 * j] = fa.x; xf[2 * j + 1] = fa.y;
-        xf[8 + 2 * j] = fb.x; xf[8 + 2 * j + 1] = fb.y;
-      }
-      float a = acc[b];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) a = fmaf(xf[j], wf[j], a);
-      acc[b] = a;
-      if (UP) {
-        float u = accu[b];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) u = fmaf(xf[j], uf[j], u);
-        accu[b] = u;
-      }
-    }
-  }
-}
-
-// Partial sums of the owned rows: part[(j * S + sg) * 2 * MAXB + b] (and
-// + MAXB for the up row) = segment sg of row r0 + j against xs (B, K) bf16.
-// Weights come from the slot in shared memory.  Returns S; ends with the
-// block synchronised.
-template <int MAXB>
-__device__ int gemv_partials(const Span& sp, const unsigned char* slot,
-                             const __nv_bfloat16* xs, int B, float* part) {
-  const int K = sp.K, nr = sp.r1 - sp.r0;
-  const int S = seg_count(sp.N, K);
-  const int seg = K / S, nch = seg / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int8_t* wrows = reinterpret_cast<const int8_t*>(slot);
-  const int8_t* urows = wrows + (size_t)nr * K;
-  const bool up = sp.wu != nullptr;
-  const int4 zero = make_int4(0, 0, 0, 0);
-  for (int t = warp; t < nr * S; t += kFastWarps) {
-    const int j = t / S, sg = t - j * S;
-    const int4* wr = reinterpret_cast<const int4*>(wrows + (size_t)j * K + (size_t)sg * seg);
-    const int4* ur = reinterpret_cast<const int4*>(urows + (size_t)j * K + (size_t)sg * seg);
-    const __nv_bfloat16* xb = xs + (size_t)sg * seg;
-    float acc[MAXB], accu[MAXB];
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b) acc[b] = accu[b] = 0.f;
-    if (up) {
-      for (int c = lane; c < nch; c += 32)
-        fma_chunk<MAXB, true>(wr[c], ur[c], xb + c * 16, K, B, acc, accu);
-    } else {
-      for (int c = lane; c < nch; c += 32)
-        fma_chunk<MAXB, false>(wr[c], zero, xb + c * 16, K, B, acc, accu);
-    }
-#pragma unroll
-    for (int b = 0; b < MAXB; ++b) {
-      if (b < B) {
-        const float s = warp_sum(acc[b]);
-        const float u = up ? warp_sum(accu[b]) : 0.f;
-        if (lane == 0) {
-          part[(size_t)t * 2 * MAXB + b] = s;
-          part[(size_t)t * 2 * MAXB + MAXB + b] = u;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  return S;
-}
-
-// Row r0 + j of stream b from the partials, scaled: (down, up).
-template <int MAXB>
-__device__ __forceinline__ float2 row_value(const Span& sp, const unsigned char* slot,
-                                            const float* part, int S, int j, int b) {
-  float s = 0.f, u = 0.f;
-  for (int sg = 0; sg < S; ++sg) {
-    s += part[(size_t)(j * S + sg) * 2 * MAXB + b];
-    u += part[(size_t)(j * S + sg) * 2 * MAXB + MAXB + b];
-  }
-  return make_float2(s * slot_scales(sp, slot)[j],
-                     sp.wu != nullptr ? u * slot_scales(sp, slot, true)[j] : 0.f);
-}
-
-// out[b * ld + r0 + j] = row r0 + j of stream b, or silu(W_1 row) * (W_3
-// row) for the SwiGLU pair.
-template <int MAXB>
-__device__ __forceinline__ void store_rows(const Span& sp, const unsigned char* slot,
-                                           const float* part, int S, int B, float* out, int ld) {
-  for (int i = threadIdx.x; i < (sp.r1 - sp.r0) * B; i += kFastThreads) {
-    const int j = i / B, b = i - j * B;
-    const float2 v = row_value<MAXB>(sp, slot, part, S, j, b);
-    __stcg(out + (size_t)b * ld + sp.r0 + j,
-           sp.wu != nullptr ? (v.x * sigmoidf(v.x)) * v.y : v.x);
-  }
-}
-
-// rstd[b] = 1 / sqrt(sum_k v[b, k]^2 / n + eps): warp w sums its share of
-// row b, lanes strided by the block; then warp b folds the 16 shares with a
-// fixed butterfly, so every block gets the same bits.
-__device__ void rms_scales(const float* v, int B, int n, float eps, float* red, float* rstd) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int b = 0; b < B; ++b) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int k = warp * 32 + lane; k < n; k += kFastThreads) {
-      const float t = v[(size_t)b * n + k];
-      acc += t * t;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) red[b * kFastWarps + warp] = acc;
-  }
-  __syncthreads();
-  for (int b = warp; b < B; b += kFastWarps) {
-    float acc = lane < kFastWarps ? red[b * kFastWarps + lane] : 0.f;
-#pragma unroll
-    for (int o = kFastWarps / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) rstd[b] = 1.0f / sqrtf(acc / (float)n + eps);
-  }
-  __syncthreads();
 }
 
 // amax[b] = max_k v[b, k] and lse[b] = log(sum_k exp(v[b, k] - amax[b]))
@@ -786,16 +522,6 @@ __device__ void merge_codes(const FastArgs& a, int cb, int* code) {
   __syncthreads();
 }
 
-// Thread 0 records the global timer in the block's next clock slot.
-__device__ __forceinline__ void stamp(const FastArgs& a, int& n) {
-  if (threadIdx.x == 0 && n < a.clock_cap) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.clock[(size_t)blockIdx.x * a.clock_cap + n] = t;
-  }
-  ++n;
-}
-
 template <int MAXB>
 __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -840,10 +566,10 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   auto barrier = [&]() {
     if (a.clock != nullptr) {
       __syncthreads();
-      stamp(a, n_stamp);
+      stamp(a.clock, a.clock_cap, n_stamp);
     }
     grid.sync();
-    if (a.clock != nullptr) stamp(a, n_stamp);
+    if (a.clock != nullptr) stamp(a.clock, a.clock_cap, n_stamp);
   };
 
   // weight slots: `cur` holds (or is receiving) the current phase's rows;
@@ -880,7 +606,7 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
     }
   };
 
-  if (a.clock != nullptr) stamp(a, n_stamp);
+  if (a.clock != nullptr) stamp(a.clock, a.clock_cap, n_stamp);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&bars[i])) : "memory");

@@ -14,8 +14,11 @@ per-output-channel scale; the stack carries its residual in f32; the cache
 is read as f32.  The cache is read-only: the token's roped key and value
 come back as ``new_k``/``new_v`` for the caller to write at ``pos``.
 
-``slow_stack_step`` launches the CUDA kernels (``csrc/slow_stack.cu``) for
-CUDA tensors and runs ``slow_stack_step_plain`` for CPU tensors only.
+``slow_stack_step`` launches the CUDA kernel (``csrc/slow_stack.cu``: one
+cooperative launch per call, phases separated by grid-wide barriers, the
+cache's attention split over the grid in fixed chunks) for CUDA tensors and
+runs ``slow_stack_step_plain`` for CPU tensors only.  The weights are
+checked and converted once per parameter set.
 """
 
 from __future__ import annotations
@@ -33,7 +36,14 @@ Params = dict[str, Any]
 NEG = -1e30  # the Pallas kernel's mask constant
 MAX_BATCH = 16
 
+BLOCKS_PER_SM = 4  # 2048 threads per SM over 512 per block: the most the grid can hold
+CHUNK = 64         # csrc/slow_stack.cu kChunk: cache rows per attention task
+
 launches = 0  # kernel launches, for showing that a run went through it
+# When set to a CUDA int64 tensor (blocks >= the grid, stamps), each block of
+# the kernel writes the global timer (ns) at its start and at its arrival at
+# and departure from every grid-wide barrier, in order.
+phase_clock: torch.Tensor | None = None
 
 
 def qdot(x: torch.Tensor, w: Params) -> torch.Tensor:
@@ -122,36 +132,37 @@ def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Te
     return h[:, None], torch.stack(new_k), torch.stack(new_v), logits
 
 
-def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
-                    x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
-                    read_len: int):
-    """Fused one-token slow forward over B independent streams.
+_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 
-    x (B, D) embedded tokens; kv_cache {"k", "v"} (L, B, Hkv, S, Dh); pos
-    (B,) int32; ``read_len`` bounds the cache rows read.  Returns (hidden
-    (B, 1, D) f32 before the final norm, new_k (L, B, Hkv, 1, Dh) f32,
-    new_v, logits (B, V) f32).
-    """
-    if x.device.type == "cpu":
-        return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
-                                     read_len=read_len)
-    global launches
-    B, D = x.shape
-    L, H, Hkv, Dh = cfg.n_layer, cfg.n_head, cfg.n_local_heads, cfg.head_dim
+# The weights of the last parameter set the kernel saw, checked and in the
+# kernel's types: (id(params), cfg, the tensors they came from, prepared).
+_prepared: tuple | None = None
+# One scratch buffer per (device, B, read_len, widths).
+_scratch: dict[tuple, torch.Tensor] = {}
+
+
+def _param_leaves(params: Params, rope_slow: torch.Tensor) -> tuple:
+    lw = params["layers"]
+    return (rope_slow, lw["attention_norm"], lw["ffn_norm"], params["norm"],
+            *(lw[k][part] for k in _MATRICES for part in ("q", "s")),
+            params["embeddings"]["q"], params["embeddings"]["s"])
+
+
+def _prepare(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor) -> list:
+    """The weight pointers of the kernel call in their order, checked once per
+    parameter set: again only when ``params`` is another dict or holds
+    another tensor than at the last call."""
+    global _prepared
+    leaves = _param_leaves(params, rope_slow)
+    if (_prepared is not None and _prepared[0] == id(params) and _prepared[1] == cfg
+            and all(a is b for a, b in zip(_prepared[2], leaves))):
+        return _prepared[3]
+    L, D, H, Hkv, Dh = cfg.n_layer, cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim
     I = cfg.intermediate_size
     q_size, kv_size = H * Dh, Hkv * Dh
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"slow_stack_step: batch {B} outside 1..{MAX_BATCH}")
     if not cfg.tie_word_embeddings:
         raise ValueError("slow_stack_step: the kernel needs the tied LM head")
     kernels.check_block_dims("slow_stack_step", D, H, Hkv, Dh, I)
-    kc, vc = kv_cache["k"], kv_cache["v"]
-    S = kc.shape[3]
-    if kc.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"slow_stack_step: cache dtype {kc.dtype} not supported")
-    if not 0 < read_len <= S:
-        raise ValueError(f"slow_stack_step: read_len {read_len} outside 1..{S}")
-    dev = x.device
     lw = params["layers"]
     emb = params["embeddings"]
     V = emb["q"].shape[0]
@@ -159,11 +170,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     ffn_norm = lw["ffn_norm"].float().contiguous()
     final_norm = params["norm"].float().contiguous()
     checks = [
-        ("x", x, x.dtype, (B, D)),
-        ("pos", pos, torch.int32, (B,)),
         ("rope_slow", rope_slow, torch.bfloat16, (rope_slow.shape[0], Dh // 2, 2)),
-        ("kv_cache.k", kc, kc.dtype, (L, B, Hkv, S, Dh)),
-        ("kv_cache.v", vc, kc.dtype, (L, B, Hkv, S, Dh)),
         ("attention_norm", attn_norm, torch.float32, (L, D)),
         ("ffn_norm", ffn_norm, torch.float32, (L, D)),
         ("norm", final_norm, torch.float32, (D,)),
@@ -177,23 +184,91 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
         checks.append((f"layers.{k}.s", lw[k]["s"], torch.float32, (L, n_out, 1)))
     for name, t, dtype, shape in checks:
         kernels.require_cuda(name, t, dtype, shape)
+        if t.data_ptr() % 16:  # the kernel's bulk copies move 16-byte-aligned spans
+            raise ValueError(f"slow_stack_step: {name} is not 16-byte aligned")
+    weights = [rope_slow, attn_norm, ffn_norm,
+               *(lw[k][part] for k in _MATRICES for part in ("q", "s")),
+               final_norm, emb["q"], emb["s"]]
+    _prepared = (id(params), cfg, leaves, weights)
+    return weights
+
+
+def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
+                    x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
+                    read_len: int):
+    """Fused one-token slow forward over B independent streams.
+
+    x (B, D) embedded tokens; kv_cache {"k", "v"} (L, B, Hkv, S, Dh); pos
+    (B,) int32; ``read_len`` bounds the cache rows read.  Returns (hidden
+    (B, 1, D) f32 before the final norm, new_k (L, B, Hkv, 1, Dh) f32,
+    new_v, logits (B, V) f32).
+
+    On CUDA tensors this is one cooperative launch of every block the card
+    holds; it raises if the card (or an MPS limit) refuses such a launch.
+    """
+    if x.device.type == "cpu":
+        return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
+                                     read_len=read_len)
+    global launches
+    B, D = x.shape
+    L, H, Hkv, Dh = cfg.n_layer, cfg.n_head, cfg.n_local_heads, cfg.head_dim
+    I = cfg.intermediate_size
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"slow_stack_step: batch {B} outside 1..{MAX_BATCH}")
+    weights = _prepare(params, cfg, rope_slow)
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    S = kc.shape[3]
+    if kc.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"slow_stack_step: cache dtype {kc.dtype} not supported")
+    row_bytes = Dh * kc.element_size()  # a cache row is read 16 bytes a lane
+    if row_bytes % 16 or 32 % (row_bytes // 16):
+        raise ValueError(f"slow_stack_step: head_dim {Dh} must be a power of two, "
+                         f"at least {16 // kc.element_size()}")
+    if not 0 < read_len <= S:
+        raise ValueError(f"slow_stack_step: read_len {read_len} outside 1..{S}")
     if rope_slow.shape[0] < S:
         raise ValueError("slow_stack_step: RoPE table shorter than the cache")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.to(torch.float32, copy=True)  # read 16 bytes at a time
+    for name, t, dtype, shape in (("x", x, torch.float32, (B, D)),
+                                  ("pos", pos, torch.int32, (B,)),
+                                  ("kv_cache.k", kc, kc.dtype, (L, B, Hkv, S, Dh)),
+                                  ("kv_cache.v", vc, kc.dtype, (L, B, Hkv, S, Dh))):
+        kernels.require_cuda(name, t, dtype, shape)
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("slow_stack_step: the cache is not 16-byte aligned")
 
-    h = x.to(torch.float32, copy=True)
+    dev = x.device
+    V = weights[-2].shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
-    new_k = torch.empty((L, B, Hkv, 1, Dh), **f32)
-    new_v = torch.empty((L, B, Hkv, 1, Dh), **f32)
-    logits = torch.empty((B, V), **f32)
-    qkv_buf = torch.empty((B, q_size + 2 * kv_size), **f32)
-    o_buf = torch.empty((B, q_size), **f32)
-    h_buf = torch.empty((B, I), **f32)
-    ptrs = [h, pos, rope_slow, kc, vc, new_k, new_v, attn_norm, ffn_norm,
-            lw["wqkv"]["q"], lw["wqkv"]["s"], lw["wo"]["q"], lw["wo"]["s"],
-            lw["w1"]["q"], lw["w1"]["s"], lw["w3"]["q"], lw["w3"]["s"],
-            lw["w2"]["q"], lw["w2"]["s"], final_norm, emb["q"], emb["s"], logits,
-            qkv_buf, o_buf, h_buf]
-    dims = [B, L, D, H, Hkv, Dh, I, V, S, read_len, int(kc.dtype == torch.bfloat16)]
+    # the outputs are views of one allocation, each part 16-byte aligned
+    n_kv = L * B * Hkv * Dh
+    out = torch.empty((B * D + 2 * n_kv + B * V,), **f32)
+    hidden, new_k, new_v, logits = torch.split(out, (B * D, n_kv, n_kv, B * V))
+    hidden = hidden.view(B, D)
+    new_k = new_k.view(L, B, Hkv, 1, Dh)
+    new_v = new_v.view(L, B, Hkv, 1, Dh)
+    logits = logits.view(B, V)
+    # one scratch buffer, carved by the kernel's entry: qkv, SwiGLU hidden,
+    # attention output, the attention partials (max, denominator, weighted
+    # sums per cache chunk) and the count of finished attention tasks per
+    # (layer, stream, KV head); each part rounded up to 4 floats
+    recs = B * Hkv * -(-read_len // CHUNK) * (H // Hkv)
+    parts = (B * (H + 2 * Hkv) * Dh, B * I, B * H * Dh, recs, recs, recs * Dh, L * B * Hkv)
+    n_scratch = sum(-(-n // 4) * 4 for n in parts)
+    key = (dev, B, read_len, L, H, Hkv, Dh, I)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = torch.empty((n_scratch,), **f32)
+    clock = phase_clock
+    if clock is not None:
+        kernels.require_cuda("phase_clock", clock, torch.int64)
+        if clock.dim() != 2 or clock.shape[0] < BLOCKS_PER_SM * kernels.num_sms(dev):
+            raise ValueError("phase_clock: expected (blocks, stamps) with a row per block")
+    ptrs = [x, pos, weights[0], kc, vc, new_k, new_v, *weights[1:], hidden, logits, scratch,
+            clock]
+    dims = [B, L, D, H, Hkv, Dh, I, V, S, read_len, int(kc.dtype == torch.bfloat16),
+            0 if clock is None else clock.shape[1], n_scratch]
     kernels.launch("fts_slow_stack_step", ptrs, dims, eps=cfg.norm_eps)
     launches += 1
-    return h[:, None], new_k, new_v, logits
+    return hidden[:, None], new_k, new_v, logits
