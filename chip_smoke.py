@@ -9,11 +9,19 @@ printing its own lines; any failure raises and the script exits non-zero:
 2. build: ``nvcc`` builds the kernels from ``fish_tts_tpu_torch/csrc`` and
    ``g++`` the BPE encoder, both from the checkout's sources.
 3. kernels: each kernel at S1-mini shapes against its plain PyTorch version
-   on the same inputs on the card: the sampler at B = 1 and 4; the slow
+   on the same inputs on the card: the sampler at B = 1, 4 and 16 on four
+   inputs (SAMPLER_CASES: f32 randn x 3 logits; the same rounded to bf16,
+   the main path's input, full of ties; top_p 1; integer-valued logits
+   whose ties keep the live set above the kernel's capacity); the slow
    stack in SLOW_CASES (B = 1, 4 and 16, its limit; one B = 4 call at the
    edge positions: no live rows, clamped at read_len, off the chunk grid;
    a 1024-row read of a 2048-row cache at positions 661-1000); the fast
-   decoder at B = 1, 4 and 16 (its limit).  Sampler tokens must be equal.
+   decoder at B = 1, 4 and 16 (its limit).  Sampler: two calls bit-equal,
+   tokens equal to the plain version's but at knife edges of its own
+   numbers (``testing.slow_decision_margins``, counted and printed), at
+   most 40 cluster-wide rounds and none at top_p 1; the round counter
+   (``sampler_kernel.round_counter``) and, at B = 1, the time by part
+   (``sampler_kernel.phase_clock``) are printed.
    Slow stack: two calls on the same inputs bit-equal; hidden state, new K/V
    and logits within 1e-2 of the plain version relative to its largest
    magnitude, layer by layer (the kernels sum in another order, and an
@@ -38,7 +46,8 @@ printing its own lines; any failure raises and the script exits non-zero:
    x 2048) and finite audio; prints frames/s, RTF and each kernel's launch
    count in each call, all of which must be > 0.
 
-Then one JSON line of per-kernel records (main-path shapes, B = 1) and, last,
+Then one JSON line of per-kernel records (main-path shapes, B = 1; the
+sampler on bf16-rounded logits) and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
 """
@@ -140,33 +149,118 @@ def nbytes(*tensors) -> int:
 # --- phase 3: kernels against their plain versions ------------------------------
 
 
-def check_sampler(B: int, gen, dev):
+SAMPLER_CASES = ("f32", "bf16", "top_p=1", "ints")
+SAMPLER_PARTS = ("load + penalty", "softmax exchange", "first pass", "cluster rounds",
+                 "argmax of kept rows", "compaction", "rank 0 levels", "final argmax")
+
+
+def sampler_inputs(B: int, case: str, gen, dev):
+    """Seeded inputs of the slow sampler at S1-mini shapes: f32 randn x 3
+    logits; the same rounded to bf16, as the main path feeds them (full of
+    ties); top_p 1; integer-valued logits whose ties keep the live set above
+    the kernel's capacity for every level."""
     import torch
 
     from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
-    from fish_tts_tpu_torch.ops import sampler_kernel as sk
 
     V, W = 155776, 11  # S1-mini vocab; decode window column 1+K
-    logits = torch.randn((B, V), generator=gen, device=dev) * 3.0
+    if case == "ints":
+        logits = torch.randint(-3, 4, (B, V), generator=gen, device=dev).float()
+    else:
+        logits = torch.randn((B, V), generator=gen, device=dev) * 3.0
+        if case != "f32":
+            logits = logits.to(torch.bfloat16).float()
     prev = torch.randint(0, V, (B, W), generator=gen, device=dev, dtype=torch.int32)
     prev[:, :3] = torch.topk(logits, 3, dim=-1).indices.int()  # penalize the leaders
     g = gumbel_from_uniform(torch.rand((B, V), generator=gen, device=dev))
     t, p, r = (torch.full((B, 1), v, device=dev) for v in SAMPLING)
-    args = (logits, prev, g, t, p, r)
-    got = sk.sample_slow(*args)
+    if case == "top_p=1":
+        p.fill_(1.0)
+    return logits, prev, g, t, p, r
+
+
+def sampler_parts(args, dev, reps: int = 10) -> list[float]:
+    """The kernel's time by part (µs, median over ``reps`` calls), from the
+    stamps it writes into ``sampler_kernel.phase_clock`` for stream 0."""
+    import torch
+
+    from fish_tts_tpu_torch.ops import sampler_kernel as sk
+
+    B = args[0].shape[0]
+    clock = torch.zeros((B, sk.CLOCK_STAMPS), dtype=torch.int64, device=dev)
+    sk.phase_clock = clock
+    parts = []
+    try:
+        for _ in range(reps):
+            sk.sample_slow(*args)
+            torch.cuda.synchronize()
+            parts.append(clock[0].diff().double().cpu() / 1e3)
+    finally:
+        sk.phase_clock = None
+    return torch.stack(parts).median(dim=0).values.tolist()
+
+
+def host_and_drain_us(fn, n: int = 200) -> tuple[float, float]:
+    """Per call, µs: the host's time to enqueue ``n`` calls back to back, and
+    the time until the device has run them all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / n * 1e6, (t2 - t0) / n * 1e6
+
+
+def check_sampler(B: int, case: str, gen, dev):
+    import torch
+
+    from fish_tts_tpu_torch.ops import sampler_kernel as sk
+    from fish_tts_tpu_torch.testing import slow_decision_margins
+
+    args = sampler_inputs(B, case, gen, dev)
+    counter = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    sk.round_counter = counter
+    try:
+        got = sk.sample_slow(*args)
+    finally:
+        sk.round_counter = None
+    got2 = sk.sample_slow(*args)
     want = sk.sample_slow_plain(*args)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"sample_slow B={B}: kernel {got.tolist()} != plain {want.tolist()}")
+    if not torch.equal(got, got2):
+        fail(f"sample_slow B={B} {case}: two calls on the same inputs differ")
+    m = slow_decision_margins(got, want, *args)
+    if m["failures"]:
+        fail(f"sample_slow B={B} {case}: " + "; ".join(m["failures"]))
+    rounds, live, block = (counter[:, j].tolist() for j in range(3))
+    if max(rounds) > sk.BISECT_ITERS or (case == "top_p=1" and max(rounds) > 0):
+        fail(f"sample_slow B={B} {case}: cluster rounds {rounds}")
     ms = time_ms(lambda: sk.sample_slow(*args), 50)
     plain_ms = time_ms(lambda: sk.sample_slow_plain(*args), 5)
     # one read of logits and noise plus the window, one write of the ids;
-    # per lane: the window compares, two exps and 40 bisection passes
+    # per lane the window compares, two exps, the scale and the add (the
+    # bisection touches only the live rows, fewer operations than these)
+    logits, prev, g, t, p, r = args
     bms, by = bound(nbytes(logits, prev, g, t, p, r) + 4 * B,
-                    B * V * (W + 2 + 2 * sk.BISECT_ITERS + 3), F32_OPS_PER_S)
+                    B * logits.shape[1] * (prev.shape[1] + 5), F32_OPS_PER_S)
     err = (got.long() - want.long()).abs().max().item()
+    note = (f"tokens equal but for {m['knife_edges']} knife edge(s) of {m['compared']} rows, "
+            f"two calls bit-equal; cluster rounds {rounds}, live rows at compaction {live}, "
+            f"block-wide levels {block}")
+    if B == 1:
+        parts = sampler_parts(args, dev)
+        host, drain = host_and_drain_us(lambda: sk.sample_slow(*args))
+        note += ("; by part (us): " + ", ".join(
+            f"{name} {us:.2f}" for name, us in zip(SAMPLER_PARTS, parts))
+            + f" (sum {sum(parts):.2f}); host enqueue {host:.1f} us per call, "
+            f"{drain:.1f} us per call back to back")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=float(err),
-                note="tokens equal")
+                note=note)
 
 
 def _qdot_f64(x, w):
@@ -420,7 +514,7 @@ KERNELS = [
 ]
 
 
-def phase_kernels(dev, batches=(1, 4), fast_batches=(1, 4, 16), slow_cases=SLOW_CASES):
+def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=SLOW_CASES):
     import torch
 
     from fish_tts_tpu_torch.models.dual_ar import make_rope_tables
@@ -441,7 +535,9 @@ def phase_kernels(dev, batches=(1, 4), fast_batches=(1, 4, 16), slow_cases=SLOW_
         results[name][label] = row
 
     for B in batches:
-        report("sample_slow", f"B={B}", check_sampler(B, gen, dev))
+        for case in SAMPLER_CASES:
+            report("sample_slow", f"B={B} {case}", check_sampler(B, case, gen, dev))
+    results["sample_slow"]["B=1"] = results["sample_slow"]["B=1 bf16"]  # the main path's input
     for case in slow_cases:
         report("slow_stack_step", case[0], check_slow_stack(params, cfg, rope["slow"], case,
                                                             gen, dev))
@@ -531,7 +627,42 @@ def phase_main(dev, profile_dir=None):
                     references=[ref])
     if profile_dir is not None:
         profile_synthesize(tts, Path(profile_dir), seen["frames"])
+        sampler_on_path(tts)
     return launches
+
+
+def sampler_on_path(tts) -> None:
+    """One more synthesize with the sampler's round counter read after every
+    call: its cluster rounds and live rows on the main path's own logits."""
+    import collections
+
+    import torch
+
+    from fish_tts_tpu_torch.ops import sampler_kernel as sk
+
+    kernel_call, seen = sk.sample_slow, []
+
+    def counted(logits, *rest):
+        counter = torch.zeros((logits.shape[0], 3), dtype=torch.int32, device=logits.device)
+        sk.round_counter = counter
+        try:
+            out = kernel_call(logits, *rest)
+        finally:
+            sk.round_counter = None
+        seen.extend(counter.tolist())
+        return out
+
+    with mock.patch.object(sk, "sample_slow", counted):
+        tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                       repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+    rounds = collections.Counter(r for r, _, _ in seen)
+    live = sorted(n for _, n, _ in seen if n >= 0)
+    block = collections.Counter(k for _, n, k in seen if n >= 0)
+    print(f"sampler on the main path: {len(seen)} rows; cluster rounds "
+          f"{dict(sorted(rounds.items()))}; "
+          f"live rows at compaction median {live[len(live) // 2] if live else None}, "
+          f"max {live[-1] if live else None}; block-wide levels {dict(sorted(block.items()))}",
+          flush=True)
 
 
 def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
@@ -616,7 +747,8 @@ def profile_synthesize(tts, out: Path, frames: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one more synthesize call; its kernel table goes to DIR")
+                    help="also profile one more synthesize call (its kernel table goes to DIR) "
+                         "and count the sampler's rounds on the main path")
     args = ap.parse_args()
 
     if not (ROOT / "fish_tts_tpu_torch" / "csrc").is_dir():

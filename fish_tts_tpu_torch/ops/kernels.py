@@ -103,20 +103,34 @@ def launch(name: str, tensors: list[torch.Tensor | None], dims: list[int],
     """Call C entry ``name`` with the tensors' data pointers (None for a null
     pointer) on the current stream; raises on a CUDA error.  The caller
     keeps the tensors alive."""
-    so = lib()
+    fn = _FNS.get(name) or _FNS.setdefault(name, getattr(lib(), name))
     ptrs = (ctypes.c_void_p * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
     ints = (ctypes.c_int * len(dims))(*dims)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    fn = getattr(so, name)
+    stream = _raw_stream(tensors[0].device.index)
     err = fn(ptrs, ints, stream) if eps is None else fn(ptrs, ints, ctypes.c_float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: {so.fts_error_string(err).decode()}")
+        raise RuntimeError(f"{name}: CUDA error {err}: {lib().fts_error_string(err).decode()}")
+
+
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as an integer handle;
+    PyTorch's raw accessor skips building a Stream object on every call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape: tuple[int, ...] | None = None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
     ``shape``)."""
+    if (t.dtype == dtype and t.is_cuda and (shape is None or t.shape == shape)
+            and t.is_contiguous()):
+        return
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -21,8 +21,21 @@ from fish_tts_tpu_torch.ops import kernels
 NEG = -1e30  # the Pallas kernel's mask constant
 MAX_BATCH = 16
 BISECT_ITERS = 40
+CLOCK_STAMPS = 9  # csrc/sampler.cu kClockStamps
 
 launches = 0  # kernel launches, for showing that a run went through it
+# When set to a CUDA int32 tensor (B, 3), the kernel writes per stream the
+# number of cluster-wide bisection rounds it ran, the live rows it compacted
+# into one block (-1 when the live set never fit) and the levels that block
+# then ran with all its threads before one warp took over.
+round_counter: torch.Tensor | None = None
+# When set to a CUDA int64 tensor (B, CLOCK_STAMPS), the kernel writes per
+# stream the global timer (ns) of rank 0's thread 0 at its start, after the
+# logits are loaded, after the softmax exchange, after the first pass, after
+# the cluster rounds, after the argmax over the rows every threshold keeps,
+# after the compaction, after the last bisection level and at its end (a
+# part that does not run repeats the stamp before it).
+phase_clock: torch.Tensor | None = None
 
 
 def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
@@ -68,9 +81,15 @@ def sample_slow(logits, prev_col, gumbel, temperature, top_p, repetition_penalty
     for name, t in (("temperature", temperature), ("top_p", top_p),
                     ("repetition_penalty", repetition_penalty)):
         kernels.require_cuda(name, t, torch.float32, (B, 1))
+    extra = []
+    for name, t, dtype, cols in (("round_counter", round_counter, torch.int32, 3),
+                                 ("phase_clock", phase_clock, torch.int64, CLOCK_STAMPS)):
+        if t is not None:
+            kernels.require_cuda(name, t, dtype, (B, cols))
+        extra.append(t)
     out = torch.empty((B,), dtype=torch.int32, device=logits.device)
     kernels.launch("fts_sample_slow",
-                   [logits, prev_col, gumbel, temperature, top_p, repetition_penalty, out],
-                   [B, V, W])
+                   [logits, prev_col, gumbel, temperature, top_p, repetition_penalty, out,
+                    *extra], [B, V, W])
     launches += 1
     return out

@@ -7,6 +7,7 @@
   drawn from a seed on the given device in bf16.
 - ``fast_decision_margins``: the fast decoder's codes against its plain
   version's, excusing a differing code only at a knife edge.
+- ``slow_decision_margins``: the same for the slow-token sampler's tokens.
 
 Both write their ``.tiktoken`` vocabulary into a fresh temporary directory.
 """
@@ -33,6 +34,7 @@ from fish_tts_tpu_torch.models.tokenizer import (
     write_tiny_vocab,
 )
 from fish_tts_tpu_torch.ops.fast_decoder import NEG
+from fish_tts_tpu_torch.ops.sampler_kernel import BISECT_ITERS
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -128,6 +130,62 @@ def fast_decision_margins(codes, codes_plain, logits, logits_plain, gumbel, temp
                 out["failures"].append(f"stream {b} position {r + 1}: code {got} != {want} "
                                        "with no knife edge in the reference")
             break
+    return out
+
+
+def _slow_trace(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
+    """``sampler_kernel.sample_slow_plain``'s own numbers, by the same
+    operations: the mass of each bisection step (B, BISECT_ITERS) and the
+    perturbed values whose argmax is the token (B, V)."""
+    V = logits.shape[1]
+    lanes = torch.arange(V, device=logits.device)
+    hit = (lanes[None, None, :] == prev_col.long()[:, :, None]).any(dim=1)
+    rep = repetition_penalty
+    l = torch.where(hit, torch.where(logits < 0, logits * rep, logits / rep), logits)
+    amax = l.max(dim=-1, keepdim=True).values
+    z = torch.log(torch.exp(l - amax).sum(dim=-1, keepdim=True)) + amax
+    p = torch.exp(l - z)
+    lo, hi = amax - 30.0, amax + 1.0
+    zero = torch.zeros((), dtype=l.dtype, device=l.device)
+    masses = []
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        mass = torch.where(l >= mid, p, zero).sum(dim=-1, keepdim=True)
+        masses.append(mass)
+        take_hi = mass <= top_p
+        lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
+    thresh = torch.minimum(hi, amax)
+    thresh = torch.where(top_p >= 1.0, torch.full_like(thresh, 0.5 * NEG), thresh)
+    masked = torch.where(l >= thresh, l, torch.full_like(l, NEG))
+    scores = masked / torch.clamp(temperature, min=1e-5) + gumbel
+    return torch.cat(masses, dim=-1), scores
+
+
+def slow_decision_margins(tokens, tokens_plain, logits, prev_col, gumbel, temperature, top_p,
+                          repetition_penalty, tol: float = 1e-6) -> dict:
+    """Hold the slow sampler's tokens against its plain version's, excusing a
+    differing token only at a knife edge of the plain version's own numbers
+    (the inputs as ``sample_slow`` takes them): one of its bisection masses
+    lies within ``tol`` of top_p (top_p < 1), or its two largest perturbed
+    values lie within ``tol``.  Returns {"knife_edges": n, "failures":
+    [messages], "compared": rows}."""
+    masses, scores = _slow_trace(logits, prev_col, gumbel, temperature, top_p,
+                                 repetition_penalty)
+    gap = (masses - top_p).abs().min(dim=-1).values.cpu()
+    top2 = scores.topk(2, dim=-1).values.cpu()
+    tp = top_p[:, 0].cpu()
+    tokens, tokens_plain = tokens.cpu(), tokens_plain.cpu()
+    out = {"knife_edges": 0, "failures": [], "compared": tokens_plain.shape[0]}
+    for b in range(tokens_plain.shape[0]):
+        got, want = int(tokens[b]), int(tokens_plain[b])
+        if got == want:
+            continue
+        mass_edge = bool(tp[b] < 1.0) and float(gap[b]) <= tol
+        if mass_edge or float(top2[b, 0] - top2[b, 1]) <= tol:
+            out["knife_edges"] += 1
+        else:
+            out["failures"].append(f"row {b}: token {got} != {want} with no knife edge in the "
+                                   f"reference (closest mass {float(gap[b]):.3g} from top_p)")
     return out
 
 
