@@ -35,16 +35,30 @@ printing its own lines; any failure raises and the script exits non-zero:
    print their time by phase, from the kernels' barrier clocks.  Median
    times of the kernel and the plain version (CUDA events) beside the least
    time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate of their type, whichever is larger).
-4. main: first the engine at the tiny config on the card against the same
+   peak rate of their type, whichever is larger).  Each kernel with its
+   skip flag clear gives the same bits as without it; with the flag set it
+   returns zeros, as its plain version does, and its time is printed.
+4. graph: at S1-mini width (GRAPH_CASES: B = 1, and B = 4 with two streams
+   already done; R = 256 of S = 512), GRAPH_FRAMES frames through the eager
+   loop (``decode.decode_chunk``) and through the captured CUDA graph
+   (``decode.DecodeGraph``) from equal copies of one state and one noise
+   seed: frames, emitted flags and the whole state, KV cache included,
+   bit-equal; the device and host time of a live and of a skipped frame.
+   Then the tiny config with a forced EOS: the graph on the card against
+   the CPU's eager loop, equal frames and integer state.
+5. main: first the engine at the tiny config on the card against the same
    engine on the CPU with the same noise (equal codes over 40 frames); then
    ``FishTTS(device="cuda", precision="int8")`` with random S1-mini
    weights (full 28-layer widths) and the full-width codec;
    ``synthesize(text, max_tokens=MAX_TOKENS)``, and the same with a
    ``VoiceProfile`` of seeded random codes shaped (10, 661), a cloned
    voice's reference.  Checks the WAV header, the sample count ((frames - 1)
-   x 2048) and finite audio; prints frames/s, RTF and each kernel's launch
-   count in each call, all of which must be > 0.
+   x 2048) and finite audio; prints frames/s, RTF, ``get_metrics()`` and
+   each kernel's launch count in each call, all of which must be > 0, and
+   checks that every decode frame was a graph replay (none eager).  Then
+   the same call on the graph route and on the eager loop, ROUTE_RUNS times
+   each in turns plus one profiled call each: frames/s, RTF, the host's
+   time per decode frame and the device's busy share of the decode span.
 
 Then one JSON line of per-kernel records (main-path shapes, B = 1; the
 sampler on bf16-rounded logits) and, last,
@@ -83,6 +97,10 @@ REL_TOL = 1e-2
 # at 5e-2 and each layer, on the same input, at REL_TOL.
 STACK_TOL = 5e-2
 SAMPLING = (0.7, 0.8, 1.1)  # temperature, top_p, repetition penalty
+GRAPH_FRAMES = 32  # frames of each decode-graph check
+# The decode-graph checks at S1-mini width: (label, B, streams already done).
+GRAPH_CASES = (("B=1", 1, ()), ("B=4", 4, (2, 3)))
+ROUTE_RUNS = 3  # synthesize calls per decode route (graph, eager) in turns
 # The slow-stack checks: (label, B, cache rows, read_len, positions: a list,
 # or a [low, high) range drawn from the seed).
 SLOW_CASES = [
@@ -144,6 +162,28 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_skip_flag(label: str, call, plain, got, dev) -> str:
+    """The kernel ``call(skip)`` with its skip flag clear gives ``got`` bit
+    for bit; with the flag set it returns at once and its outputs are zeros,
+    equal to its plain version's ``plain(skip)``.  Returns a note with the
+    skipped call's time (CUDA events, the wrapper's host work included)."""
+    import torch
+
+    clear = torch.zeros((), dtype=torch.bool, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(as_tuple(call(clear)), got)):
+        fail(f"{label}: with the skip flag clear the outputs differ from a call without it")
+    skipped, skipped_plain = as_tuple(call(on)), as_tuple(plain(on))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) and not a.any() for a, b in zip(skipped, skipped_plain)):
+        fail(f"{label}: with the skip flag set the outputs are not the plain version's zeros")
+    return f"skip flag: clear bit-equal, set -> zeros in {time_ms(lambda: call(on), 50):.4f} ms"
 
 
 # --- phase 3: kernels against their plain versions ------------------------------
@@ -240,6 +280,8 @@ def check_sampler(B: int, case: str, gen, dev):
     rounds, live, block = (counter[:, j].tolist() for j in range(3))
     if max(rounds) > sk.BISECT_ITERS or (case == "top_p=1" and max(rounds) > 0):
         fail(f"sample_slow B={B} {case}: cluster rounds {rounds}")
+    skip_note = check_skip_flag(f"sample_slow B={B} {case}", lambda f: sk.sample_slow(*args, f),
+                                lambda f: sk.sample_slow_plain(*args, f), (got,), dev)
     ms = time_ms(lambda: sk.sample_slow(*args), 50)
     plain_ms = time_ms(lambda: sk.sample_slow_plain(*args), 5)
     # one read of logits and noise plus the window, one write of the ids;
@@ -251,7 +293,7 @@ def check_sampler(B: int, case: str, gen, dev):
     err = (got.long() - want.long()).abs().max().item()
     note = (f"tokens equal but for {m['knife_edges']} knife edge(s) of {m['compared']} rows, "
             f"two calls bit-equal; cluster rounds {rounds}, live rows at compaction {live}, "
-            f"block-wide levels {block}")
+            f"block-wide levels {block}; {skip_note}")
     if B == 1:
         parts = sampler_parts(args, dev)
         host, drain = host_and_drain_us(lambda: sk.sample_slow(*args))
@@ -291,11 +333,12 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     tokens[:, 0] += ids.semantic_begin  # semantic tokens: the codebook rows count
     x = dual_ar.embed_inputs(params, cfg, ids, tokens)[:, 0].contiguous()
 
-    def kern():
-        return ss.slow_stack_step(params, cfg, rope, x, kv, pos, read_len=read_len)
+    def kern(skip=None):
+        return ss.slow_stack_step(params, cfg, rope, x, kv, pos, read_len=read_len, skip=skip)
 
-    def plain():
-        return ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=read_len)
+    def plain(skip=None):
+        return ss.slow_stack_step_plain(params, cfg, rope, x, kv, pos, read_len=read_len,
+                                        skip=skip)
 
     # the whole stack in one call against the plain version
     got = kern()
@@ -336,6 +379,7 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     with mock.patch.object(ss, "qdot", _qdot_f64):
         want64 = plain()
     self_rel = max(rel_err(w64, w_)[1] for w64, w_ in zip(want64, want))
+    skip_note = check_skip_flag(f"slow_stack_step {label}", kern, plain, got, dev)
     ms = time_ms(kern, 20)
     plain_ms = time_ms(plain, 3, warm=1)
     lw = params["layers"]
@@ -354,7 +398,7 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     note = (f"positions {pos.tolist()}, read_len {read_len}; two calls bit-equal; per layer "
             f"rel <= {layer_err:.2e}; whole stack "
             + ", ".join(f"{k} rel {v[1]:.2e}" for k, v in full.items())
-            + f" (plain with float64 sums against plain: rel {self_rel:.2e})")
+            + f" (plain with float64 sums against plain: rel {self_rel:.2e}); {skip_note}")
     if label in SLOW_PHASE_CASES:
         for line in slow_phase_breakdown(kern, cfg, dev):
             print(f"kernel slow_stack_step {label} phases: {line}", flush=True)
@@ -465,8 +509,8 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
     h, a0, prev, g, t, p, r = fast_inputs(cfg, B, gen, dev)
     args = (params, cfg, rope, h, a0, prev, g, t, p, r)
 
-    def kern():
-        return fd.fast_decode_frame(*args, window=WINDOW)
+    def kern(skip=None):
+        return fd.fast_decode_frame(*args, window=WINDOW, skip=skip)
 
     codes, logits = kern()
     codes2, logits2 = kern()
@@ -478,6 +522,9 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
     m = fast_decision_margins(codes, codes_p, logits, logits_p, g, t, p, tol)
     if m["failures"]:
         fail(f"fast_decode_frame B={B}: " + "; ".join(m["failures"]))
+    skip_note = check_skip_flag(
+        f"fast_decode_frame B={B}", kern,
+        lambda f: fd.fast_decode_frame_plain(*args, window=WINDOW, skip=f), (codes, logits), dev)
     ms = time_ms(kern, 20)
     plain_ms = time_ms(lambda: fd.fast_decode_frame_plain(*args, window=WINDOW), 3, warm=1)
     fl = params["fast_layers"]
@@ -501,7 +548,7 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
                 note=(f"codes equal but for {m['knife_edges']} knife edge(s), two calls "
                       f"bit-equal, logits max abs err {m['max_abs_err']:.3g} "
                       f"(tol {tol:.3g}) over {m['compared']} positions; "
-                      f"streamed-per-position bound {streamed_ms:.4f} ms"))
+                      f"streamed-per-position bound {streamed_ms:.4f} ms; {skip_note}"))
 
 
 KERNELS = [
@@ -549,7 +596,188 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
     return results
 
 
-# --- phase 4: the main path --------------------------------------------------------
+# --- phase 4: the decode graph against the eager loop ---------------------------
+
+
+def device_and_host_us(fn, n: int) -> tuple[float, float]:
+    """Per call, µs: the device's time for ``n`` calls of ``fn`` enqueued
+    behind a sleeping kernel (so the host cannot hold the device back), and
+    the host's time to enqueue them.  Their launches must fit in the
+    device's queue, or the host waits for the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time
+    a.record()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t) / n * 1e6
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n * 1e3, host
+
+
+def state_copy(state):
+    return {k: ({kk: vv.clone() for kk, vv in v.items()} if k == "kv" else v.clone())
+            for k, v in state.items()}
+
+
+def state_diff(a, b) -> list[str]:
+    """The names of the state's tensors that are not bit-equal."""
+    import torch
+
+    names = [f"kv.{k}" for k in a["kv"] if not torch.equal(a["kv"][k], b["kv"][k])]
+    return names + [k for k in a if k != "kv" and not torch.equal(a[k], b[k])]
+
+
+def graph_state(params, cfg, ids, B: int, done, gen, dev):
+    """A mid-generation decode state at S1-mini width, drawn from ``gen``:
+    cache rows, positions in [READ_LEN / 2, READ_LEN - GRAPH_FRAMES), last
+    frames, penalty windows and steps; the streams in ``done`` have stopped."""
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+
+    state = decode.init_state(params, cfg, B, max_seq_len=CACHE_LEN, window=WINDOW)
+    for t in state["kv"].values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+    i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+    state["pos"].copy_(torch.randint(READ_LEN // 2, READ_LEN - GRAPH_FRAMES, (B,), **i32))
+    K1 = 1 + cfg.num_codebooks
+    codes = torch.randint(0, cfg.residual_codebook_size, (B, K1, WINDOW + 1), **i32)
+    codes[:, 0] = codes[:, 1] + ids.semantic_begin  # semantic tokens
+    state["frame"].copy_(codes[:, :, 0])
+    state["prev"].copy_(codes[:, :, 1:])
+    state["step"].copy_(torch.randint(WINDOW // 2, 4 * WINDOW, (B,), **i32))
+    state["done"][list(done)] = True
+    return state
+
+
+def phase_graph(dev) -> None:
+    """At S1-mini width, GRAPH_FRAMES frames through the eager loop
+    (``decode.decode_chunk``) and through the captured graph
+    (``decode.DecodeGraph``) from equal copies of one state with the same
+    noise seed: frames, emitted flags and the whole state, KV cache included,
+    bit-equal.  Then the device and host time of a live and of a skipped
+    frame (every stream done) of the graph."""
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models.dual_ar import TokenIds, make_rope_tables
+    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
+    from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+
+    cfg, params, tok, *_ = make_s1_mini_bundle(SEED, device=dev, with_vocoder=False)
+    params = quantize_lm_params(params)
+    rope = make_rope_tables(cfg, device=dev)
+    ids = TokenIds(tok.semantic_begin_id, tok.semantic_end_id, tok.im_end_id)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    noise = decode.GumbelNoise(SEED, cfg)
+    for label, B, done in GRAPH_CASES:
+        state = graph_state(params, cfg, ids, B, done, gen, dev)
+        decode.set_sampling(state, *SAMPLING)
+        decode.set_noise(state, noise)
+        eager, graphed = state_copy(state), state_copy(state)
+
+        _, f_e, e_e = decode.decode_chunk(params, rope, eager, noise, *SAMPLING, cfg=cfg, ids=ids,
+                                          num_frames=GRAPH_FRAMES, kv_bucket=READ_LEN,
+                                          early_exit=True)
+        graph = decode.DecodeGraph(params, cfg, ids, rope, graphed, kv_bucket=READ_LEN,
+                                   skip_done=True, capacity=GRAPH_FRAMES)
+        f_g, e_g = graph.run(GRAPH_FRAMES)
+        torch.cuda.synchronize()
+        diff = state_diff(eager, graphed)
+        if not (torch.equal(f_e, f_g) and torch.equal(e_e, e_g)) or diff:
+            fail(f"decode graph {label}: differs from the eager loop "
+                 f"(frames {torch.equal(f_e, f_g)}, emitted {torch.equal(e_e, e_g)}, "
+                 f"state {diff})")
+        live = [b for b in range(B) if b not in done]
+        tokens = set(f_g[live, :, 0].flatten().tolist())
+        if not e_g[live].all() or e_g[list(done)].any() or len(tokens) < 8:
+            fail(f"decode graph {label}: emitted {e_g.tolist()}, {len(tokens)} distinct tokens")
+        n = GRAPH_FRAMES
+        live_us, live_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
+        graphed["done"].fill_(True)
+        skip_us, skip_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
+        print(f"graph {label}: {GRAPH_FRAMES} frames bit-equal to the eager loop (frames, "
+              f"emitted, state, KV cache; streams {list(done)} done from the start); "
+              f"device {live_us:.1f} us per live frame, {skip_us:.1f} us per skipped frame; "
+              f"host {live_host:.1f} us per live replay, {skip_host:.1f} us per skipped replay",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    check_tiny_eos(dev)
+
+
+def check_tiny_eos(dev, n: int = 24) -> None:
+    """The tiny config with a forced EOS, as ``tests/test_torch_decode.py``
+    forces it (``ids.im_end`` set to a slow token the stream samples
+    mid-chunk): the decode graph on the card against the eager loop on the
+    CPU, from the same prompt and noise.  Frames, emitted flags and the
+    integer state equal; the KV cache within REL_TOL of its largest
+    magnitude; every frame after the stop skipped."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models.dual_ar import TokenIds, make_rope_tables
+    from fish_tts_tpu_torch.models.prompt import build_prompt
+    from fish_tts_tpu_torch.testing import make_tiny_bundle
+    from fish_tts_tpu_torch.utils.checkpoint import to_device
+    from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+
+    cfg, params, tok, *_ = make_tiny_bundle(SEED)
+    params = quantize_lm_params(params)
+    ids = TokenIds(tok.semantic_begin_id, tok.semantic_end_id, tok.im_end_id)
+    enc = build_prompt(tok, "Hi there.", cfg.num_codebooks).values
+    prompt = np.zeros((1, enc.shape[0], 64), np.int32)
+    prompt[0, :, :enc.shape[1]] = enc
+    noise = decode.GumbelNoise(SEED, cfg)
+
+    def run(device, ids):
+        p = to_device(params, device)
+        rope = make_rope_tables(cfg, device=device)
+        state = decode.init_state(p, cfg, 1, max_seq_len=cfg.max_seq_len)
+        _, first = decode.prefill(p, rope, state, torch.as_tensor(prompt, device=device),
+                                  torch.tensor([enc.shape[1]], device=device), noise,
+                                  *SAMPLING, cfg=cfg, ids=ids, kv_bucket=0)
+        if device == "cpu":
+            _, f, e = decode.decode_chunk(p, rope, state, noise, *SAMPLING, cfg=cfg, ids=ids,
+                                          num_frames=n, kv_bucket=cfg.max_seq_len,
+                                          early_exit=True)
+        else:
+            f, e = decode.DecodeGraph(p, cfg, ids, rope, state, kv_bucket=cfg.max_seq_len,
+                                      skip_done=True, capacity=n).run(n)
+        return int(first[0, 0]), f.cpu(), e.cpu(), state
+
+    first, frames, _, _ = run("cpu", ids)
+    tokens = frames[0, :, 0].tolist()
+    stop = next(k for k in range(4, n - 8)
+                if tokens.index(tokens[k]) == k and tokens[k] != first)
+    forced = dataclasses.replace(ids, im_end=tokens[stop])
+    _, f_c, e_c, s_c = run("cpu", forced)
+    _, f_g, e_g, s_g = run(dev, forced)
+    s_g = {k: ({kk: vv.cpu() for kk, vv in v.items()} if k == "kv" else v.cpu())
+           for k, v in s_g.items()}
+    ints = [k for k in ("frame", "pos", "prev", "step", "done") if not torch.equal(s_c[k], s_g[k])]
+    if not (torch.equal(f_c, f_g) and torch.equal(e_c, e_g)) or ints:
+        fail(f"tiny forced EOS: the graph on the card differs from the CPU's eager loop "
+             f"(frames {torch.equal(f_c, f_g)}, emitted {torch.equal(e_c, e_g)}, state {ints})")
+    if e_g[0, stop + 1:].any() or not e_g[0, :stop + 1].all():
+        fail(f"tiny forced EOS at frame {stop}: emitted {e_g[0].tolist()}")
+    kv_rel = max(rel_err(s_g["kv"][k], s_c["kv"][k])[1] for k in ("k", "v"))
+    if not kv_rel <= REL_TOL:
+        fail(f"tiny forced EOS: KV cache relative error {kv_rel:.3g} > {REL_TOL}")
+    print(f"graph tiny: forced EOS at frame {stop}; {n} frames of the graph on the card equal "
+          f"to the CPU's eager loop (frames, emitted, integer state), {n - stop - 1} frames "
+          f"skipped; KV cache rel err {kv_rel:.2e}", flush=True)
+
+
+# --- phase 5: the main path --------------------------------------------------------
 
 
 def check_tiny_engine(dev, frames: int = 40) -> None:
@@ -625,15 +853,101 @@ def phase_main(dev, profile_dir=None):
     ref = VoiceProfile(codes=codes, text="A reference transcript read by the voice to clone.")
     synthesize_once(tts, seen, f"synthesize with a {REF_FRAMES}-frame reference",
                     references=[ref])
+    compare_routes(tts, seen)
     if profile_dir is not None:
         profile_synthesize(tts, Path(profile_dir), seen["frames"])
         sampler_on_path(tts)
     return launches
 
 
+def eager_route(engine):
+    """A stand-in for ``engine._decode`` that runs the eager loop on the
+    card, for measuring the graph route against it."""
+    from fish_tts_tpu_torch.engine import decode
+
+    def run(state, noise, sampling, n, kv_bucket, early_exit):
+        _, frames, emitted = decode.decode_chunk(
+            engine.params, engine.rope, state, noise, *sampling, cfg=engine.cfg, ids=engine.ids,
+            num_frames=n, kv_bucket=kv_bucket, early_exit=early_exit)
+        return frames, emitted
+
+    return run
+
+
+def decode_busy(prof) -> tuple[float, float] | None:
+    """The device's busy share of the decode span of a profiled call, and
+    the span (ms): from the first slow-stack kernel's start to the last
+    fast-decoder kernel's end, the union of every device activity over that
+    span.  None when the trace holds no such kernels."""
+    evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    slow = [e.time_range for e in evs if "slow_step_kernel" in e.name]
+    fast = [e.time_range for e in evs if "fast_frame_kernel" in e.name]
+    if not slow or not fast:
+        return None
+    t0, t1 = min(r.start for r in slow), max(r.end for r in fast)
+    busy, end = 0.0, t0
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def compare_routes(tts, seen) -> None:
+    """The same call on both decode routes: ROUTE_RUNS synthesize calls on
+    each in turns (graph, eager, eager, graph, ...), then one profiled call
+    of each.  Prints frames/s and RTF of every call, the host's time per
+    decode frame (its dispatch of the frames, which enqueues and does not
+    wait) and the device's busy share of the decode span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = tts.engine
+    host: dict[str, list[float]] = {}
+
+    def timed(route, fn):
+        def run(state, noise, sampling, n, *a, **k):
+            t = time.perf_counter()
+            out = fn(state, noise, sampling, n, *a, **k)
+            h = host.setdefault(route, [0.0, 0])
+            h[0] += time.perf_counter() - t
+            h[1] += n
+            return out
+        return run
+
+    routes = {"graph": timed("graph", engine._decode), "eager": timed("eager", eager_route(engine))}
+
+    def call(route):
+        with mock.patch.object(engine, "_decode", routes[route]):
+            t = time.perf_counter()
+            tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                           repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        frames = seen["codes"].shape[1] + 1
+        return frames / seen["gen_s"], wall / (len(seen["audio"]) / tts.sample_rate)
+
+    runs: dict[str, list[tuple[float, float]]] = {"graph": [], "eager": []}
+    for i in range(ROUTE_RUNS):
+        for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            runs[route].append(call(route))
+    host_us = {r: h[0] / h[1] * 1e6 for r, h in host.items()}
+    for route in ("graph", "eager"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call(route)
+        busy = decode_busy(prof)
+        share = ("not measured (no decode kernels in the trace)" if busy is None else
+                 f"{100 * busy[0]:.1f}% of a {busy[1]:.1f} ms decode span (profiled call)")
+        print(f"route {route}: frames/s {[round(r, 1) for r, _ in runs[route]]}, RTF "
+              f"{[round(x, 4) for _, x in runs[route]]} over {ROUTE_RUNS} calls; host "
+              f"{host_us[route]:.1f} us per decode frame; device busy {share}", flush=True)
+
+
 def sampler_on_path(tts) -> None:
     """One more synthesize with the sampler's round counter read after every
-    call: its cluster rounds and live rows on the main path's own logits."""
+    call: its cluster rounds and live rows on the main path's own logits
+    (on the eager route: a graph replay does not pass through the wrapper)."""
     import collections
 
     import torch
@@ -652,7 +966,8 @@ def sampler_on_path(tts) -> None:
         seen.extend(counter.tolist())
         return out
 
-    with mock.patch.object(sk, "sample_slow", counted):
+    with mock.patch.object(sk, "sample_slow", counted), \
+            mock.patch.object(tts.engine, "_decode", eager_route(tts.engine)):
         tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
                        repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
     rounds = collections.Counter(r for r, _, _ in seen)
@@ -672,11 +987,14 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
     import numpy as np
     import torch
 
+    from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
     modules = (sampler_kernel, slow_stack, fast_decoder)
     for m in modules:
         m.launches = 0
+    decode.graph_replays = decode.eager_frames = 0
+    tts.metrics.reset()
     t = time.perf_counter()
     wav = tts.synthesize(TEXT, references=references, temperature=SAMPLING[0],
                          top_p=SAMPLING[1], repetition_penalty=SAMPLING[2],
@@ -684,6 +1002,7 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {name: m.launches for (name, _, _), m in zip(KERNELS, modules)}
+    replays, eager = decode.graph_replays, decode.eager_frames
 
     codes, audio = seen["codes"], seen["audio"]
     seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
@@ -701,12 +1020,16 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
         fail(f"main: {label}: audio is not finite")
     if not all(v > 0 for v in launches.values()):
         fail(f"main: {label}: a kernel of the path did not run: {launches}")
+    if replays < frames - 2 or eager:
+        fail(f"main: {label}: {replays} graph replays and {eager} eager decode frames")
     audio_s = n / tts.sample_rate
     print(f"main: {label} -> {len(wav)} WAV bytes, {frames} frames, {n} samples, "
           f"audio peak {float(np.abs(audio).max()):.4f}; {wall:.3f} s wall, "
           f"generation {seen['gen_s']:.3f} s = {frames / seen['gen_s']:.1f} frames/s, "
           f"RTF {wall / audio_s:.4f}", flush=True)
-    print(f"main: {label}: kernel launches {json.dumps(launches)}", flush=True)
+    print(f"main: {label}: kernel launches {json.dumps(launches)}; {replays} decode frames "
+          f"replayed from captured graphs, {eager} eager", flush=True)
+    print(f"main: {label}: get_metrics() {json.dumps(tts.get_metrics())}", flush=True)
     return launches
 
 
@@ -781,6 +1104,7 @@ def main() -> int:
           flush=True)
 
     results = phase_kernels(dev)
+    phase_graph(dev)
     launches = phase_main(dev, args.profile)
 
     records = []

@@ -24,6 +24,13 @@ def find_multiple(n: int, k: int) -> int:
     return n + k - (n % k)
 
 
+# DualARConfig flags whose path the port does not have yet.
+UNPORTED_ATTENTION_FLAGS = (
+    "attention_qkv_bias", "attention_o_bias", "attention_qk_norm",
+    "fast_attention_qkv_bias", "fast_attention_o_bias", "fast_attention_qk_norm",
+)
+
+
 @dataclass(frozen=True)
 class DualARConfig:
     """Configuration of the DualAR text-to-semantic transformer.
@@ -105,9 +112,20 @@ class DualARConfig:
             attention_o_bias=self.fast_attention_o_bias,
         )
 
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for a flag whose path the port does
+        not have: attention biases and qk-norm (ROADMAP.md §1.3), which the
+        port's stack and kernels would otherwise drop without an error."""
+        for name in UNPORTED_ATTENTION_FLAGS:
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"DualARConfig.{name}=True: attention biases and qk-norm are not "
+                    "ported yet (ROADMAP.md §1.3)")
+
     @staticmethod
     def from_json(path: str | Path) -> "DualARConfig":
-        """Load from a checkpoint directory or config.json."""
+        """Load from a checkpoint directory or config.json; raises for the
+        flags of :meth:`check_ported`."""
         path = Path(path)
         if path.is_dir():
             path = path / "config.json"
@@ -116,7 +134,9 @@ class DualARConfig:
         if data.get("model_type") != "dual_ar":
             raise ValueError(f"Unknown model type: {data.get('model_type')}")
         known = {f.name for f in dataclasses.fields(DualARConfig)}
-        return DualARConfig(**{k: v for k, v in data.items() if k in known})
+        cfg = DualARConfig(**{k: v for k, v in data.items() if k in known})
+        cfg.check_ported()
+        return cfg
 
 
 @dataclass(frozen=True)

@@ -60,7 +60,7 @@ enum {
   kH, kA0, kPrev, kGumbel, kTemp, kTopP, kRep, kRope,
   kAttnNorm, kFfnNorm, kWqkv, kWqkvS, kWo, kWoS, kW1, kW1S, kW3, kW3S, kW2, kW2S,
   kFastNorm, kHead, kHeadS, kEmb, kEmbS, kCodes, kLogitsOut,
-  kScratch, kClock, kNumPtrs
+  kScratch, kClock, kSkip, kNumPtrs
 };
 enum {
   kB, kK, kL, kD, kHeads, kHkv, kDh, kI, kVr, kW, kHBf16, kCandCap, kClockCap, kScratchFloats,
@@ -114,6 +114,7 @@ struct FastArgs {
   float* cand_v;    // (grid, B) best Gumbel score of each block's lanes
   int* cand_i;
   unsigned long long* clock;  // (grid, clock_cap) barrier times, or nullptr
+  const unsigned char* skip;  // the frame's skip flag, or nullptr
   int B, K, L, D, H, Hkv, Dh, I, Vr, W, h_bf16, clock_cap;
   int wslots;        // weight slots in shared memory: 1 or 2
   int wslot_bytes;   // bytes of one slot
@@ -524,6 +525,9 @@ __device__ void merge_codes(const FastArgs& a, int cb, int* code) {
 
 template <int MAXB>
 __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
+  // a skipped frame: every block reads the same flag before any barrier and
+  // returns, so the grid leaves together and writes nothing
+  if (a.skip != nullptr && *a.skip) return;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float rstd[kMaxBatch];
@@ -862,6 +866,7 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.cand_v = at[6];
   a.cand_i = reinterpret_cast<int*>(at[7]);
   a.clock = static_cast<unsigned long long*>(p[kClock]);
+  a.skip = static_cast<const unsigned char*>(p[kSkip]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.B <= 1) return (int)launch_frame<1>(a, cap, st);
   if (a.B <= 4) return (int)launch_frame<4>(a, cap, st);

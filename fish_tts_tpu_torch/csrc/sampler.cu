@@ -383,7 +383,11 @@ sample_slow_kernel(const float* __restrict__ logits, const int* __restrict__ pre
                    const float* __restrict__ gumbel, const float* __restrict__ temp,
                    const float* __restrict__ top_p, const float* __restrict__ rep,
                    int* __restrict__ out, int* __restrict__ rounds_out,
-                   long long* __restrict__ clock, int V, int W, int chunk) {
+                   long long* __restrict__ clock, const unsigned char* __restrict__ skip,
+                   int V, int W, int chunk) {
+  // a skipped frame: every block of every cluster reads the same flag before
+  // any cluster barrier or remote store and returns, writing nothing
+  if (skip != nullptr && *skip) return;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
@@ -671,10 +675,10 @@ sample_slow_kernel(const float* __restrict__ logits, const int* __restrict__ pre
 }  // namespace
 }  // namespace fts
 
-enum { kLogits, kPrev, kGumbel, kTemp, kTopP, kRep, kOut, kRounds, kClock, kNumPtrs };
+enum { kLogits, kPrev, kGumbel, kTemp, kTopP, kRep, kOut, kRounds, kClock, kSkip, kNumPtrs };
 enum { kB, kV, kW, kNumDims };
 
-// ptrs/dims in the order of the enums above (kRounds, kClock may be null);
+// ptrs/dims in the order of the enums above (kRounds, kClock, kSkip may be null);
 // returns a cudaError_t.
 extern "C" int fts_sample_slow(void* const* ptrs, const int* dims, void* stream) {
   using namespace fts;
@@ -697,6 +701,7 @@ extern "C" int fts_sample_slow(void* const* ptrs, const int* dims, void* stream)
       static_cast<const float*>(ptrs[kGumbel]), static_cast<const float*>(ptrs[kTemp]),
       static_cast<const float*>(ptrs[kTopP]), static_cast<const float*>(ptrs[kRep]),
       static_cast<int*>(ptrs[kOut]), static_cast<int*>(ptrs[kRounds]),
-      static_cast<long long*>(ptrs[kClock]), V, W, chunk);
+      static_cast<long long*>(ptrs[kClock]), static_cast<const unsigned char*>(ptrs[kSkip]),
+      V, W, chunk);
   return (int)cudaGetLastError();
 }

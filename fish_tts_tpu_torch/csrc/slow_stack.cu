@@ -53,7 +53,7 @@
 enum {
   kX, kPos, kRope, kKCache, kVCache, kNewK, kNewV,
   kAttnNorm, kFfnNorm, kWqkv, kWqkvS, kWo, kWoS, kW1, kW1S, kW3, kW3S, kW2, kW2S,
-  kFinalNorm, kHead, kHeadS, kHidden, kLogits, kScratch, kClock, kNumPtrs
+  kFinalNorm, kHead, kHeadS, kHidden, kLogits, kScratch, kClock, kSkip, kNumPtrs
 };
 enum {
   kB, kL, kD, kH, kHkv, kDh, kI, kV, kS, kReadLen, kKvBf16, kClockCap, kScratchFloats,
@@ -98,6 +98,7 @@ struct SlowArgs {
   float* pacc;        // (B, Hkv, n_chunks, G, Dh) partial weighted sums
   int* done_tasks;    // (L, B, Hkv) attention tasks finished, zeroed at the start
   unsigned long long* clock;  // (grid, clock_cap) barrier times, or nullptr
+  const unsigned char* skip;  // the frame's skip flag, or nullptr
   int B, L, D, H, Hkv, Dh, I, V, S, read_len, n_chunks, clock_cap;
   int wslots;        // weight slots in shared memory: 1 or 2
   int wslot_bytes;   // bytes of one slot
@@ -508,6 +509,9 @@ __device__ void head_rows(const SlowArgs& a, const __nv_bfloat16* xs) {
 
 template <int MAXB, typename T>
 __global__ void __launch_bounds__(kThreads, 1) slow_step_kernel(const SlowArgs a) {
+  // a skipped frame: every block reads the same flag before any barrier and
+  // returns, so the grid leaves together and writes nothing
+  if (a.skip != nullptr && *a.skip) return;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float rstd[kMaxBatch];
@@ -772,6 +776,7 @@ extern "C" int fts_slow_stack_step(void* const* p, const int* d, float eps, void
   a.pacc = at[5];
   a.done_tasks = reinterpret_cast<int*>(at[6]);
   a.clock = static_cast<unsigned long long*>(p[kClock]);
+  a.skip = static_cast<const unsigned char*>(p[kSkip]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bf16) return (int)launch<__nv_bfloat16>(a, st);
   return (int)launch<float>(a, st);

@@ -19,7 +19,10 @@ int8 product, accumulation and the per-frame K/V cache are f32.
 ``fast_decode_frame`` launches the CUDA kernel (``csrc/fast_decoder.cu``:
 one cooperative launch per frame, phases separated by grid-wide barriers)
 for CUDA tensors and runs ``fast_decode_frame_plain`` for CPU tensors only.
-The weights are checked and converted once per parameter set.
+The weights are checked and converted once per parameter set, and the
+kernel's scratch is allocated once per shape.  Both take an optional
+``skip`` flag, a 0-dim bool tensor on the device: when it is set the kernel
+returns at once and the outputs are zeros in both versions.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ def top_p_pairwise_keep(logits: torch.Tensor, top_p: torch.Tensor) -> torch.Tens
 
 def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0,
                             prev_rows, gumbel, temperature, top_p, repetition_penalty, *,
-                            window: int):
+                            window: int, skip: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`fast_decode_frame`."""
     B = h_fast.shape[0]
     K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
@@ -114,7 +117,10 @@ def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast
         code = torch.argmax(scaled + gumbel[:, pos - 1].float(), dim=-1)
         codes.append(code)
         logits_out.append(logits)
-    return (torch.stack(codes, dim=1).to(torch.int32), torch.stack(logits_out, dim=1))
+    codes, logits = torch.stack(codes, dim=1).to(torch.int32), torch.stack(logits_out, dim=1)
+    if skip is None:
+        return codes, logits
+    return torch.where(skip, 0, codes), torch.where(skip, 0.0, logits)
 
 
 _MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
@@ -122,6 +128,8 @@ _MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 # The weights of the last parameter set the kernel saw, checked and in the
 # kernel's types: (id(params), cfg, the tensors they came from, prepared).
 _prepared: tuple | None = None
+# One scratch buffer per (device, B, widths).
+_scratch: dict[tuple, torch.Tensor] = {}
 
 
 def _param_leaves(params: Params, rope_fast: torch.Tensor) -> tuple:
@@ -185,7 +193,8 @@ def _prepare(params: Params, cfg: DualARConfig, rope_fast: torch.Tensor) -> list
 
 
 def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, prev_rows,
-                      gumbel, temperature, top_p, repetition_penalty, *, window: int):
+                      gumbel, temperature, top_p, repetition_penalty, *, window: int,
+                      skip: torch.Tensor | None = None):
     """Run the per-frame codebook loop for B <= 16 streams.
 
     h_fast (B, D) projected slow hidden (f32 or bf16); a0 (B,) first code;
@@ -199,7 +208,7 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     if h_fast.device.type == "cpu":
         return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
                                        gumbel, temperature, top_p, repetition_penalty,
-                                       window=window)
+                                       window=window, skip=skip)
     global launches
     B, D = h_fast.shape
     K, Vr, L = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer
@@ -226,9 +235,13 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         raise ValueError(f"fast_decode_frame: h_fast dtype {h_fast.dtype} not supported")
     if h_fast.data_ptr() % 16:  # read 16 bytes at a time
         h_fast = h_fast.clone()
+    if skip is not None:
+        kernels.require_cuda("skip", skip, torch.bool, ())
 
-    codes = torch.empty((B, K - 1), dtype=torch.int32, device=dev)
-    logits = torch.empty((B, K - 1, Vr), dtype=torch.float32, device=dev)
+    # a skipped call writes nothing, so with a flag the outputs are allocated zeroed
+    alloc = torch.empty if skip is None else torch.zeros
+    codes = alloc((B, K - 1), dtype=torch.int32, device=dev)
+    logits = alloc((B, K - 1, Vr), dtype=torch.float32, device=dev)
     cand_cap = BLOCKS_PER_SM * kernels.num_sms(dev) * B
     # one scratch buffer, carved by the kernel's entry: residual stream,
     # qkv, SwiGLU hidden, per-frame K and V caches, head logits, and each
@@ -236,14 +249,17 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     parts = (B * D, B * (H + 2 * Hkv) * Dh, B * I, L * B * Hkv * K * Dh,
              L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap)
     n_scratch = sum(-(-n // 4) * 4 for n in parts)
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+    key = (dev, B, K, L, D, H, Hkv, Dh, I, Vr)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
     clock = phase_clock
     if clock is not None:
         kernels.require_cuda("phase_clock", clock, torch.int64)
         if clock.dim() != 2 or clock.shape[0] < cand_cap // B:
             raise ValueError("phase_clock: expected (blocks, stamps) with a row per block")
     ptrs = [h_fast, a0, prev_rows, gumbel, temp, tp, rep, *weights, codes, logits, scratch,
-            clock]
+            clock, skip]
     dims = [B, K, L, D, H, Hkv, Dh, I, Vr, W, int(h_fast.dtype == torch.bfloat16), cand_cap,
             0 if clock is None else clock.shape[1], n_scratch]
     kernels.launch("fts_fast_decode_frame", ptrs, dims, eps=cfg.norm_eps)

@@ -9,7 +9,9 @@ every lane), divide by the temperature clamped at 1e-5, and return the
 argmax of that plus the Gumbel noise, which the caller draws.
 
 ``sample_slow`` launches the CUDA kernel (``csrc/sampler.cu``) for CUDA
-tensors and runs ``sample_slow_plain`` for CPU tensors only.
+tensors and runs ``sample_slow_plain`` for CPU tensors only.  Both take an
+optional ``skip`` flag, a 0-dim bool tensor on the device: when it is set
+the kernel returns at once and the tokens are zeros in both versions.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ round_counter: torch.Tensor | None = None
 phase_clock: torch.Tensor | None = None
 
 
-def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
+def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_penalty,
+                      skip=None):
     """Plain PyTorch version.  logits/gumbel (B, V) f32, prev_col (B, W)
     int, temperature/top_p/repetition_penalty (B, 1) f32.  Returns (B,)
-    int32."""
+    int32, zeros when ``skip`` is set."""
     B, V = logits.shape
     lanes = torch.arange(V, device=logits.device)
     hit = (lanes[None, None, :] == prev_col.long()[:, :, None]).any(dim=1)
@@ -61,15 +64,16 @@ def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_p
     thresh = torch.where(top_p >= 1.0, torch.full_like(thresh, 0.5 * NEG), thresh)
     masked = torch.where(l >= thresh, l, torch.full_like(l, NEG))
     scaled = masked / torch.clamp(temperature, min=1e-5)
-    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    token = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    return token if skip is None else torch.where(skip, 0, token)
 
 
-def sample_slow(logits, prev_col, gumbel, temperature, top_p, repetition_penalty):
+def sample_slow(logits, prev_col, gumbel, temperature, top_p, repetition_penalty, skip=None):
     """Sample one token id per row; see the module docstring.  Returns (B,)
     int32 on the logits' device."""
     if logits.device.type == "cpu":
         return sample_slow_plain(logits, prev_col, gumbel, temperature, top_p,
-                                 repetition_penalty)
+                                 repetition_penalty, skip)
     global launches
     B, V = logits.shape
     W = prev_col.shape[1]
@@ -87,9 +91,13 @@ def sample_slow(logits, prev_col, gumbel, temperature, top_p, repetition_penalty
         if t is not None:
             kernels.require_cuda(name, t, dtype, (B, cols))
         extra.append(t)
-    out = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    if skip is not None:
+        kernels.require_cuda("skip", skip, torch.bool, ())
+    # a skipped call writes nothing: its tokens are the zeros allocated here
+    alloc = torch.empty if skip is None else torch.zeros
+    out = alloc((B,), dtype=torch.int32, device=logits.device)
     kernels.launch("fts_sample_slow",
                    [logits, prev_col, gumbel, temperature, top_p, repetition_penalty, out,
-                    *extra], [B, V, W])
+                    *extra, skip], [B, V, W])
     launches += 1
     return out

@@ -18,7 +18,9 @@ come back as ``new_k``/``new_v`` for the caller to write at ``pos``.
 cooperative launch per call, phases separated by grid-wide barriers, the
 cache's attention split over the grid in fixed chunks) for CUDA tensors and
 runs ``slow_stack_step_plain`` for CPU tensors only.  The weights are
-checked and converted once per parameter set.
+checked and converted once per parameter set.  Both take an optional
+``skip`` flag, a 0-dim bool tensor on the device: when it is set the kernel
+returns at once and every output is zeros in both versions.
 """
 
 from __future__ import annotations
@@ -111,7 +113,7 @@ def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_c
 
 def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
                           x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
-                          read_len: int):
+                          read_len: int, skip: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`slow_stack_step`."""
     B = x.shape[0]
     L = cfg.n_layer
@@ -129,7 +131,10 @@ def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Te
         new_k.append(k[:, :, None])
         new_v.append(v[:, :, None])
     logits = qdot(rms(h, params["norm"], cfg.norm_eps), params["embeddings"])
-    return h[:, None], torch.stack(new_k), torch.stack(new_v), logits
+    out = (h[:, None], torch.stack(new_k), torch.stack(new_v), logits)
+    if skip is None:
+        return out
+    return tuple(torch.where(skip, 0.0, t) for t in out)
 
 
 _MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
@@ -195,7 +200,7 @@ def _prepare(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor) -> list
 
 def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
                     x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
-                    read_len: int):
+                    read_len: int, skip: torch.Tensor | None = None):
     """Fused one-token slow forward over B independent streams.
 
     x (B, D) embedded tokens; kv_cache {"k", "v"} (L, B, Hkv, S, Dh); pos
@@ -208,7 +213,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     """
     if x.device.type == "cpu":
         return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
-                                     read_len=read_len)
+                                     read_len=read_len, skip=skip)
     global launches
     B, D = x.shape
     L, H, Hkv, Dh = cfg.n_layer, cfg.n_head, cfg.n_local_heads, cfg.head_dim
@@ -237,13 +242,16 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
         kernels.require_cuda(name, t, dtype, shape)
     if kc.data_ptr() % 16 or vc.data_ptr() % 16:
         raise ValueError("slow_stack_step: the cache is not 16-byte aligned")
+    if skip is not None:
+        kernels.require_cuda("skip", skip, torch.bool, ())
 
     dev = x.device
     V = weights[-2].shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
-    # the outputs are views of one allocation, each part 16-byte aligned
+    # the outputs are views of one allocation, each part 16-byte aligned; a
+    # skipped call writes nothing, so with a flag they are allocated zeroed
     n_kv = L * B * Hkv * Dh
-    out = torch.empty((B * D + 2 * n_kv + B * V,), **f32)
+    out = (torch.empty if skip is None else torch.zeros)((B * D + 2 * n_kv + B * V,), **f32)
     hidden, new_k, new_v, logits = torch.split(out, (B * D, n_kv, n_kv, B * V))
     hidden = hidden.view(B, D)
     new_k = new_k.view(L, B, Hkv, 1, Dh)
@@ -266,7 +274,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
         if clock.dim() != 2 or clock.shape[0] < BLOCKS_PER_SM * kernels.num_sms(dev):
             raise ValueError("phase_clock: expected (blocks, stamps) with a row per block")
     ptrs = [x, pos, weights[0], kc, vc, new_k, new_v, *weights[1:], hidden, logits, scratch,
-            clock]
+            clock, skip]
     dims = [B, L, D, H, Hkv, Dh, I, V, S, read_len, int(kc.dtype == torch.bfloat16),
             0 if clock is None else clock.shape[1], n_scratch]
     kernels.launch("fts_slow_stack_step", ptrs, dims, eps=cfg.norm_eps)

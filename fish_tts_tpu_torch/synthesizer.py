@@ -2,9 +2,10 @@
 
 Port of the non-streaming surface of ``fish_tts_tpu/synthesizer.py``:
 ``FishTTS`` (from a native model directory or a testing bundle, precision
-``int8``; ``bf16`` and ``fp32`` raise until the float decode loop is
-ported), ``synthesize`` with ``references=`` per call,
-``VoiceProfile`` and the ``get_instance``/``reset_instance`` singleton.
+``int8``; ``bf16``, ``fp16`` and ``fp32`` raise until the float decode loop
+is ported), ``synthesize`` with ``references=`` per call, the engine's
+``metrics`` and ``get_metrics()``, ``VoiceProfile`` and the
+``get_instance``/``reset_instance`` singleton.
 Entry points run on the card unless the caller asks for ``device="cpu"``;
 ``device="cuda"`` without a GPU raises.
 """
@@ -27,6 +28,7 @@ from fish_tts_tpu_torch.models import vocoder
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.utils import checkpoint as ckpt
 from fish_tts_tpu_torch.utils.audio import to_wav_bytes
+from fish_tts_tpu_torch.utils.profiling import hbm_bytes_in_use
 from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
 
 logger = logging.getLogger(__name__)
@@ -37,7 +39,7 @@ _instance_lock = threading.Lock()
 # Vocoder length buckets (frames); beyond the list they keep doubling.
 _VOCODER_BUCKETS = (10, 20, 40, 80, 160, 320, 640, 1280, 2048)
 
-PRECISIONS = ("int8", "bf16", "fp32")
+PRECISIONS = ("int8", "bf16", "fp16", "fp32")
 
 
 def _vocoder_bucket(n: int) -> int:
@@ -89,14 +91,14 @@ class FishTTS:
     """
 
     def __init__(self, model_dir: str | Path | None = None, device: str = "cuda",
-                 precision: Literal["int8", "bf16", "fp32"] = "int8", warmup: bool = True,
-                 *, engine_config: EngineConfig | None = None, seed: int = 0,
-                 _testing_bundle=None):
+                 precision: Literal["int8", "bf16", "fp16", "fp32"] = "int8",
+                 warmup: bool = True, *, engine_config: EngineConfig | None = None,
+                 seed: int = 0, _testing_bundle=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         if precision != "int8":
             # the decode engine has only the kernel path, which takes int8
-            # weights; the float decode loop is not ported yet
+            # weights; the float decode loop is not ported yet (ROADMAP.md §1.3)
             raise NotImplementedError(
                 f"precision={precision!r}: the PyTorch port decodes only int8 so far")
         self.device = resolve_device(device)
@@ -109,6 +111,7 @@ class FishTTS:
                 raise ValueError("model_dir is required (the port downloads nothing)")
             (self._cfg, params, self._tokenizer,
              self._vocoder_cfg, self._vocoder_params) = self._load_models(Path(model_dir))
+        self._cfg.check_ported()
 
         # int8: bf16 activations and codec, weight-only int8 LM matmuls
         params = quantize_lm_params(ckpt.to_device(params, self.device, torch.bfloat16))
@@ -117,6 +120,9 @@ class FishTTS:
                                                   torch.bfloat16)
         self._engine = GenerationEngine(params, self._cfg, self._tokenizer,
                                         engine_cfg=engine_config, seed=seed)
+        # RTF and audio seconds follow the loaded codec's frame rate
+        self._engine.metrics.audio_tokens_per_sec = (
+            self._vocoder_cfg.sample_rate / self._vocoder_cfg.frame_length)
         if warmup:
             self._run_warmup()
 
@@ -139,7 +145,9 @@ class FishTTS:
         return cfg, params, tokenizer, vcfg, vparams
 
     def _run_warmup(self) -> None:
-        """One short generation and one vocoder decode; errors propagate."""
+        """One short generation and one vocoder decode; errors propagate.
+        On the card the generation captures the decode graphs a short call
+        meets."""
         t0 = time.perf_counter()
         for response in self._engine.generate_long("Hello.", max_new_tokens=20,
                                                    temperature=0.7, top_p=0.8,
@@ -179,9 +187,10 @@ class FishTTS:
         n = codes.shape[-1]
         padded = np.zeros((1, codes.shape[0], _vocoder_bucket(n)), np.int64)
         padded[0, :, :n] = codes
-        audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
-                                   torch.as_tensor(padded, device=self.device))
-        arr = audio[0, 0].float().cpu().numpy()
+        with self._engine.metrics.span("vocoder"):
+            audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
+                                       torch.as_tensor(padded, device=self.device))
+            arr = audio[0, 0].float().cpu().numpy()
         return arr[: n * self._vocoder_cfg.frame_length]
 
     def _decode_to_wav(self, codes: np.ndarray) -> bytes:
@@ -190,6 +199,19 @@ class FishTTS:
     @property
     def engine(self) -> GenerationEngine:
         return self._engine
+
+    @property
+    def metrics(self):
+        """The engine's metrics registry (prefill/decode/vocoder spans, tokens)."""
+        return self._engine.metrics
+
+    def get_metrics(self) -> dict:
+        """Timing and throughput summary, plus the device memory in use."""
+        out = self._engine.metrics.summary()
+        hbm = hbm_bytes_in_use(self.device)
+        if hbm:
+            out["hbm_gb"] = round(hbm / 2**30, 2)
+        return out
 
     @property
     def sample_rate(self) -> int:
@@ -201,7 +223,7 @@ class FishTTS:
 
 
 def get_instance(model_dir: str | Path | None = None, device: str = "cuda",
-                 precision: Literal["int8", "bf16", "fp32"] = "int8",
+                 precision: Literal["int8", "bf16", "fp16", "fp32"] = "int8",
                  warmup: bool = True, engine_config: EngineConfig | None = None) -> FishTTS:
     """Get or create the process-wide FishTTS instance."""
     global _instance

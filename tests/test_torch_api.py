@@ -1,9 +1,11 @@
 """The port's public surface on the CPU, against the JAX package where the two
 can be compared: loading a native model directory, ``references=`` through
-``build_prompt``, ``VoiceProfile``, the singleton, the package's imports and
-``chip_smoke.py``'s refusal to run without a GPU."""
+``build_prompt``, ``VoiceProfile``, the singleton, the package's imports,
+``chip_smoke.py``'s refusal to run without a GPU, and the refusal of what
+the port does not run yet (attention biases and qk-norm, ``fp16``)."""
 
 import io
+import json
 import shutil
 import subprocess
 import sys
@@ -22,7 +24,10 @@ from fish_tts_tpu.testing import make_tiny_bundle as jtiny_bundle
 from fish_tts_tpu.testing import write_tiny_model_dir
 from fish_tts_tpu.utils.quantize import quantize_lm_params as jquantize
 from fish_tts_tpu_torch import FishTTS, VoiceProfile, get_instance, reset_instance
+from fish_tts_tpu_torch.config import DualARConfig
 from fish_tts_tpu_torch.engine import generate as tgenerate
+from fish_tts_tpu_torch.testing import make_tiny_bundle as ttiny_bundle
+from fish_tts_tpu_torch.utils import checkpoint as tckpt
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -125,3 +130,39 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path, where):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("flag", ["attention_qkv_bias", "attention_o_bias",
+                                  "attention_qk_norm", "fast_attention_qkv_bias",
+                                  "fast_attention_o_bias", "fast_attention_qk_norm"])
+def test_unported_attention_flags_raise(model_dir, tmp_path, flag):
+    """A config that sets an attention bias or qk-norm is refused at load:
+    the port's stack and kernels would drop it without an error."""
+    d = Path(shutil.copytree(model_dir, tmp_path / "model"))
+    cfg = json.loads((d / "config.json").read_text())
+    cfg[flag] = True
+    (d / "config.json").write_text(json.dumps(cfg))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DualARConfig.from_json(d)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FishTTS(model_dir=d, device="cpu", warmup=False)
+
+
+@pytest.mark.parametrize("weight", ["wqkv_b", "wo_b", "q_norm", "k_norm"])
+def test_unported_attention_weights_raise(weight):
+    """An LM tree holding a bias or qk-norm weight is refused, in either
+    stack."""
+    _, jp, *_ = jtiny_bundle(0)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    tckpt.from_jax_params(tree)  # the plain tree loads
+    for stack in ("layers", "fast_layers"):
+        bad = dict(tree, **{stack: dict(tree[stack], **{weight: np.zeros((2, 4), np.float32)})})
+        with pytest.raises(NotImplementedError, match=weight):
+            tckpt.from_jax_params(bad)
+
+
+def test_fp16_precision_raises_like_the_other_unported_ones():
+    with pytest.raises(NotImplementedError):
+        FishTTS(device="cpu", precision="fp16", _testing_bundle=ttiny_bundle(0))
+    with pytest.raises(ValueError):
+        FishTTS(device="cpu", precision="int4", _testing_bundle=ttiny_bundle(0))
