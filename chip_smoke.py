@@ -16,7 +16,9 @@ printing its own lines; any failure raises and the script exits non-zero:
    stack in SLOW_CASES (B = 1, 4 and 16, its limit; one B = 4 call at the
    edge positions: no live rows, clamped at read_len, off the chunk grid;
    a 1024-row read of a 2048-row cache at positions 661-1000); the fast
-   decoder at B = 1, 4 and 16 (its limit).  Sampler: two calls bit-equal,
+   decoder at B = 1, 4 and 16 (its limit); the slow stack's head-less
+   variant (an untied head) at B = 1, 4 and 16, with the slow stack's
+   checks.  Sampler: two calls bit-equal,
    tokens equal to the plain version's but at knife edges of its own
    numbers (``testing.slow_decision_margins``, counted and printed), at
    most 40 cluster-wide rounds and none at top_p 1; the round counter
@@ -54,15 +56,27 @@ printing its own lines; any failure raises and the script exits non-zero:
    ``VoiceProfile`` of seeded random codes shaped (10, 661), a cloned
    voice's reference.  Checks the WAV header, the sample count ((frames - 1)
    x 2048) and finite audio; prints frames/s, RTF, ``get_metrics()`` and
-   each kernel's launch count in each call, all of which must be > 0, and
-   checks that every decode frame was a graph replay (none eager).  Then
+   each kernel's launch count in each call, which must be what the call's
+   route implies (``decode.route``: a kernel on it launches once per frame,
+   the slow stack only in decode; a kernel off it not at all), and checks
+   that every decode frame was a graph replay (none eager).  Then
    the same call on the graph route and on the eager loop, ROUTE_RUNS times
    each in turns plus one profiled call each: frames/s, RTF, the host's
    time per decode frame and the device's busy share of the decode span.
 
+6. float: ``FishTTS(device="cuda", precision="bf16")``, the reference's
+   default, at S1-mini width: the same two calls (the sampler kernel once
+   per frame, the other two kernels not at all), its decode graph against
+   the eager loop at B = 1 (bit-equal, device time per frame, graph nodes
+   per frame), both decode routes in turns; then one call each for fp16,
+   fp32, int8 with an untied head, int8 with ``sample_top_k`` 0 and 8, and
+   int8 with qk-norm and qkv and o biases in both stacks, each with the
+   launch counts of its route.
+
 Then one JSON line of per-kernel records (main-path shapes, B = 1; the
 sampler on bf16-rounded logits) and, last,
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``; the head-less slow stack's launches are
+those of the untied-head call.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
 """
 
@@ -101,6 +115,7 @@ GRAPH_FRAMES = 32  # frames of each decode-graph check
 # The decode-graph checks at S1-mini width: (label, B, streams already done).
 GRAPH_CASES = (("B=1", 1, ()), ("B=4", 4, (2, 3)))
 ROUTE_RUNS = 3  # synthesize calls per decode route (graph, eager) in turns
+FLOAT_PROFILE_TOKENS = 20  # frames of the profiled bf16 calls
 # The slow-stack checks: (label, B, cache rows, read_len, positions: a list,
 # or a [low, high) range drawn from the seed).
 SLOW_CASES = [
@@ -113,6 +128,7 @@ SLOW_CASES = [
     ("long B=1", 1, 2048, 1024, (REF_FRAMES, 1001)),
 ]
 SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by phase
+HEADLESS = "slow_stack_step (no head)"  # the slow-stack kernel for an untied head
 
 # H100 SXM data sheet (dense): memory rate, bf16 tensor-core rate and f32
 # CUDA-core rate.
@@ -165,7 +181,9 @@ def nbytes(*tensors) -> int:
 
 
 def as_tuple(out) -> tuple:
-    return out if isinstance(out, tuple) else (out,)
+    """A kernel's outputs as a tuple, without the ones it does not make
+    (the head-less slow stack's logits)."""
+    return tuple(t for t in out if t is not None) if isinstance(out, tuple) else (out,)
 
 
 def check_skip_flag(label: str, call, plain, got, dev) -> str:
@@ -177,7 +195,7 @@ def check_skip_flag(label: str, call, plain, got, dev) -> str:
 
     clear = torch.zeros((), dtype=torch.bool, device=dev)
     on = torch.ones((), dtype=torch.bool, device=dev)
-    if not all(torch.equal(a, b) for a, b in zip(as_tuple(call(clear)), got)):
+    if not all(torch.equal(a, b) for a, b in zip(as_tuple(call(clear)), as_tuple(got))):
         fail(f"{label}: with the skip flag clear the outputs differ from a call without it")
     skipped, skipped_plain = as_tuple(call(on)), as_tuple(plain(on))
     torch.cuda.synchronize()
@@ -341,12 +359,15 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
                                         skip=skip)
 
     # the whole stack in one call against the plain version
-    got = kern()
-    got2 = kern()
-    want = plain()
+    head = cfg.tie_word_embeddings  # else the head-less variant: no logits
+    got = as_tuple(kern())
+    got2 = as_tuple(kern())
+    want = as_tuple(plain())
     torch.cuda.synchronize()
     if not all(torch.equal(g_, g2) for g_, g2 in zip(got, got2)):
         fail(f"slow_stack_step {label}: two calls on the same inputs differ")
+    if len(got) != 3 + head or len(want) != 3 + head:
+        fail(f"slow_stack_step {label}: {len(got)} outputs, want {3 + head}")
     full = {}
     for name, g_, w_ in zip(("hidden", "new_k", "new_v", "logits"), got, want):
         if g_.shape != w_.shape:
@@ -366,7 +387,8 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
         kv1 = {k: v[i:i + 1] for k, v in kv.items()}
         g1 = ss.slow_stack_step(p1, one, rope, h, kv1, pos, read_len=read_len)
         w1 = ss.slow_stack_step_plain(p1, one, rope, h, kv1, pos, read_len=read_len)
-        names = ("hidden", "new_k", "new_v") + (("logits",) if i == cfg.n_layer - 1 else ())
+        names = ("hidden", "new_k", "new_v") + (("logits",) if head and i == cfg.n_layer - 1
+                                                else ())
         for j, name in enumerate(names):
             rel = rel_err(g1[j], w1[j])[1]
             layer_err = max(layer_err, rel)
@@ -377,7 +399,7 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     # the yardstick for STACK_TOL: the plain version against itself with its
     # products summed in float64, the bf16 rounding of each activation kept
     with mock.patch.object(ss, "qdot", _qdot_f64):
-        want64 = plain()
+        want64 = as_tuple(plain())
     self_rel = max(rel_err(w64, w_)[1] for w64, w_ in zip(want64, want))
     skip_note = check_skip_flag(f"slow_stack_step {label}", kern, plain, got, dev)
     ms = time_ms(kern, 20)
@@ -386,12 +408,13 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     weights = [lw[k][part] for k in ("wqkv", "wo", "w1", "w3", "w2") for part in ("q", "s")]
     rows = int(torch.clamp(pos.long(), max=read_len).sum())
     row_bytes = 2 * cfg.n_local_heads * cfg.head_dim * kv["k"].element_size()  # K and V
-    read = (nbytes(x, pos, *weights, lw["attention_norm"], lw["ffn_norm"], params["norm"],
-                   params["embeddings"]["q"], params["embeddings"]["s"])
+    head_weights = ((params["norm"], params["embeddings"]["q"], params["embeddings"]["s"])
+                    if head else ())
+    read = (nbytes(x, pos, *weights, lw["attention_norm"], lw["ffn_norm"], *head_weights)
             + cfg.n_layer * rows * row_bytes)
     written = nbytes(*got)
     n_weights = sum(lw[k]["q"].numel() for k in ("wqkv", "wo", "w1", "w3", "w2"))
-    n_weights += params["embeddings"]["q"].numel()
+    n_weights += params["embeddings"]["q"].numel() if head else 0
     attn_ops = 4 * cfg.n_layer * rows * cfg.n_head * cfg.head_dim
     bms, by = bound(read + written, 2 * B * n_weights + attn_ops, BF16_OPS_PER_S)
     err = max(e[0] for e in full.values())
@@ -399,7 +422,7 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
             f"rel <= {layer_err:.2e}; whole stack "
             + ", ".join(f"{k} rel {v[1]:.2e}" for k, v in full.items())
             + f" (plain with float64 sums against plain: rel {self_rel:.2e}); {skip_note}")
-    if label in SLOW_PHASE_CASES:
+    if head and label in SLOW_PHASE_CASES:
         for line in slow_phase_breakdown(kern, cfg, dev):
             print(f"kernel slow_stack_step {label} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err, note=note)
@@ -558,6 +581,8 @@ KERNELS = [
      "fish_tts_tpu/ops/slow_stack.py:520"),
     ("fast_decode_frame", "fish_tts_tpu_torch/csrc/fast_decoder.cu",
      "fish_tts_tpu/ops/fast_decoder.py:686"),
+    # the variant for an untied head (the JAX kernel's with_head = False, :405, :544)
+    (HEADLESS, "fish_tts_tpu_torch/csrc/slow_stack.cu", "fish_tts_tpu/ops/slow_stack.py:520"),
 ]
 
 
@@ -591,6 +616,9 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
     for B in fast_batches:
         report("fast_decode_frame", f"B={B}",
                check_fast_decoder(params, cfg, rope["fast"], B, gen, dev))
+    untied = dataclasses.replace(cfg, tie_word_embeddings=False)
+    for case in slow_cases[:3]:  # B = 1, 4, 16
+        report(HEADLESS, case[0], check_slow_stack(params, untied, rope["slow"], case, gen, dev))
     del params
     torch.cuda.empty_cache()
     return results
@@ -656,16 +684,79 @@ def graph_state(params, cfg, ids, B: int, done, gen, dev):
     return state
 
 
-def phase_graph(dev) -> None:
-    """At S1-mini width, GRAPH_FRAMES frames through the eager loop
+def graph_nodes(graph, reps: int = 4) -> float | None:
+    """Device operations (kernels, copies, fills) per frame of a
+    ``decode.DecodeGraph``, counted by ``torch.profiler`` over ``reps``
+    replays of its CUDA graph (the ring's counter reset first, as
+    ``DecodeGraph.run`` does): the graph's nodes.  None when the trace
+    holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.ring.t.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.graph.replay()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return n / reps if n else None
+
+
+def graph_against_eager(params, cfg, ids, rope, case, gen, dev, **options) -> dict:
+    """One case of GRAPH_CASES: GRAPH_FRAMES frames through the eager loop
     (``decode.decode_chunk``) and through the captured graph
     (``decode.DecodeGraph``) from equal copies of one state with the same
-    noise seed: frames, emitted flags and the whole state, KV cache included,
-    bit-equal.  Then the device and host time of a live and of a skipped
-    frame (every stream done) of the graph."""
+    noise seed, on the route ``options`` give: frames, emitted flags and the
+    whole state, KV cache included, bit-equal.  Then the device and host time
+    of a live and of a skipped frame (every stream done) of the graph, and
+    its node count."""
     import torch
 
     from fish_tts_tpu_torch.engine import decode
+
+    label, B, done = case
+    noise = decode.GumbelNoise(SEED, cfg)
+    state = graph_state(params, cfg, ids, B, done, gen, dev)
+    decode.set_sampling(state, *SAMPLING)
+    decode.set_noise(state, noise)
+    eager, graphed = state_copy(state), state_copy(state)
+
+    _, f_e, e_e = decode.decode_chunk(params, rope, eager, noise, *SAMPLING, cfg=cfg, ids=ids,
+                                      num_frames=GRAPH_FRAMES, kv_bucket=READ_LEN,
+                                      early_exit=True, **options)
+    graph = decode.DecodeGraph(params, cfg, ids, rope, graphed, kv_bucket=READ_LEN,
+                               skip_done=True, capacity=GRAPH_FRAMES, **options)
+    f_g, e_g = graph.run(GRAPH_FRAMES)
+    torch.cuda.synchronize()
+    diff = state_diff(eager, graphed)
+    if not (torch.equal(f_e, f_g) and torch.equal(e_e, e_g)) or diff:
+        fail(f"decode graph {label}: differs from the eager loop "
+             f"(frames {torch.equal(f_e, f_g)}, emitted {torch.equal(e_e, e_g)}, "
+             f"state {diff})")
+    live = [b for b in range(B) if b not in done]
+    tokens = set(f_g[live, :, 0].flatten().tolist())
+    if not e_g[live].all() or e_g[list(done)].any() or len(tokens) < 8:
+        fail(f"decode graph {label}: emitted {e_g.tolist()}, {len(tokens)} distinct tokens")
+    n = GRAPH_FRAMES
+    live_us, live_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
+    graphed["done"].fill_(True)
+    skip_us, skip_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
+    nodes = graph_nodes(graph)
+    print(f"graph {label}: {GRAPH_FRAMES} frames bit-equal to the eager loop (frames, "
+          f"emitted, state, KV cache; streams {list(done)} done from the start); "
+          f"device {live_us:.1f} us per live frame, {skip_us:.1f} us per skipped frame; "
+          f"host {live_host:.1f} us per live replay, {skip_host:.1f} us per skipped replay; "
+          f"{'not measured' if nodes is None else f'{nodes:.0f}'} device operations per "
+          f"replay (profiler)", flush=True)
+    return {"live_us": live_us, "skip_us": skip_us, "nodes": nodes}
+
+
+def phase_graph(dev) -> None:
+    """The int8 kernel route at S1-mini width: GRAPH_CASES through
+    :func:`graph_against_eager`; then the tiny config's forced EOS."""
+    import torch
+
     from fish_tts_tpu_torch.models.dual_ar import TokenIds, make_rope_tables
     from fish_tts_tpu_torch.testing import make_s1_mini_bundle
     from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
@@ -676,38 +767,8 @@ def phase_graph(dev) -> None:
     ids = TokenIds(tok.semantic_begin_id, tok.semantic_end_id, tok.im_end_id)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
-    noise = decode.GumbelNoise(SEED, cfg)
-    for label, B, done in GRAPH_CASES:
-        state = graph_state(params, cfg, ids, B, done, gen, dev)
-        decode.set_sampling(state, *SAMPLING)
-        decode.set_noise(state, noise)
-        eager, graphed = state_copy(state), state_copy(state)
-
-        _, f_e, e_e = decode.decode_chunk(params, rope, eager, noise, *SAMPLING, cfg=cfg, ids=ids,
-                                          num_frames=GRAPH_FRAMES, kv_bucket=READ_LEN,
-                                          early_exit=True)
-        graph = decode.DecodeGraph(params, cfg, ids, rope, graphed, kv_bucket=READ_LEN,
-                                   skip_done=True, capacity=GRAPH_FRAMES)
-        f_g, e_g = graph.run(GRAPH_FRAMES)
-        torch.cuda.synchronize()
-        diff = state_diff(eager, graphed)
-        if not (torch.equal(f_e, f_g) and torch.equal(e_e, e_g)) or diff:
-            fail(f"decode graph {label}: differs from the eager loop "
-                 f"(frames {torch.equal(f_e, f_g)}, emitted {torch.equal(e_e, e_g)}, "
-                 f"state {diff})")
-        live = [b for b in range(B) if b not in done]
-        tokens = set(f_g[live, :, 0].flatten().tolist())
-        if not e_g[live].all() or e_g[list(done)].any() or len(tokens) < 8:
-            fail(f"decode graph {label}: emitted {e_g.tolist()}, {len(tokens)} distinct tokens")
-        n = GRAPH_FRAMES
-        live_us, live_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
-        graphed["done"].fill_(True)
-        skip_us, skip_host = (t / n for t in device_and_host_us(lambda: graph.run(n), 1))
-        print(f"graph {label}: {GRAPH_FRAMES} frames bit-equal to the eager loop (frames, "
-              f"emitted, state, KV cache; streams {list(done)} done from the start); "
-              f"device {live_us:.1f} us per live frame, {skip_us:.1f} us per skipped frame; "
-              f"host {live_host:.1f} us per live replay, {skip_host:.1f} us per skipped replay",
-              flush=True)
+    for case in GRAPH_CASES:
+        graph_against_eager(params, cfg, ids, rope, case, gen, dev)
     del params
     torch.cuda.empty_cache()
     check_tiny_eos(dev)
@@ -809,23 +870,11 @@ def check_tiny_engine(dev, frames: int = 40) -> None:
           f"CPU path's", flush=True)
 
 
-def phase_main(dev, profile_dir=None):
-    import numpy as np
+def observe(tts) -> dict:
+    """Wrap the instance's generation and codec so that each call records
+    its codes, float audio and generation time in the returned dict."""
     import torch
 
-    from fish_tts_tpu_torch import FishTTS, VoiceProfile
-    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
-
-    check_tiny_engine(dev)
-    bundle = make_s1_mini_bundle(SEED, device=dev)
-    t0 = time.perf_counter()
-    tts = FishTTS(device="cuda", precision="int8", warmup=True, seed=SEED,
-                  _testing_bundle=bundle)
-    torch.cuda.synchronize()
-    print(f"main: FishTTS(int8) at S1-mini width built and warmed up in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    # observe the codes and the float audio the public call produces
     seen = {}
     gen_long, decode_codes = tts.engine.generate_long, tts._decode_codes
 
@@ -843,16 +892,41 @@ def phase_main(dev, profile_dir=None):
         return audio
 
     tts.engine.generate_long, tts._decode_codes = generate_long, decode
+    return seen
 
-    launches = synthesize_once(tts, seen, "synthesize")
-    # a cloned voice: the reference's codes come before the text's frames;
-    # row 0 semantic, the others residual codes
-    cfg, rng = tts._cfg, np.random.default_rng(SEED)
+
+def reference_profile(cfg):
+    """A cloned voice's reference: REF_FRAMES frames of seeded random codes
+    (row 0 semantic, the others residual) and a transcript."""
+    import numpy as np
+
+    from fish_tts_tpu_torch import VoiceProfile
+
+    rng = np.random.default_rng(SEED)
     codes = rng.integers(0, cfg.residual_codebook_size, (cfg.num_codebooks, REF_FRAMES))
     codes[0] = rng.integers(0, cfg.codebook_size, REF_FRAMES)
-    ref = VoiceProfile(codes=codes, text="A reference transcript read by the voice to clone.")
+    return VoiceProfile(codes=codes, text="A reference transcript read by the voice to clone.")
+
+
+def phase_main(dev, profile_dir=None):
+    import torch
+
+    from fish_tts_tpu_torch import FishTTS
+    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
+
+    check_tiny_engine(dev)
+    bundle = make_s1_mini_bundle(SEED, device=dev)
+    t0 = time.perf_counter()
+    tts = FishTTS(device="cuda", precision="int8", warmup=True, seed=SEED,
+                  _testing_bundle=bundle)
+    torch.cuda.synchronize()
+    print(f"main: FishTTS(int8) at S1-mini width built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    seen = observe(tts)
+    launches = synthesize_once(tts, seen, "synthesize")
     synthesize_once(tts, seen, f"synthesize with a {REF_FRAMES}-frame reference",
-                    references=[ref])
+                    references=[reference_profile(tts._cfg)])
     compare_routes(tts, seen)
     if profile_dir is not None:
         profile_synthesize(tts, Path(profile_dir), seen["frames"])
@@ -868,20 +942,21 @@ def eager_route(engine):
     def run(state, noise, sampling, n, kv_bucket, early_exit):
         _, frames, emitted = decode.decode_chunk(
             engine.params, engine.rope, state, noise, *sampling, cfg=engine.cfg, ids=engine.ids,
-            num_frames=n, kv_bucket=kv_bucket, early_exit=early_exit)
+            num_frames=n, kv_bucket=kv_bucket, early_exit=early_exit, **engine._options)
         return frames, emitted
 
     return run
 
 
-def decode_busy(prof) -> tuple[float, float] | None:
+def decode_busy(prof, first: str, last: str) -> tuple[float, float] | None:
     """The device's busy share of the decode span of a profiled call, and
-    the span (ms): from the first slow-stack kernel's start to the last
-    fast-decoder kernel's end, the union of every device activity over that
-    span.  None when the trace holds no such kernels."""
+    the span (ms): from the first ``first`` kernel's start to the last
+    ``last`` kernel's end (the slow stack and the fast decoder on the int8
+    route, the sampler on a float one), the union of every device activity
+    over that span.  None when the trace holds no such kernels."""
     evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    slow = [e.time_range for e in evs if "slow_step_kernel" in e.name]
-    fast = [e.time_range for e in evs if "fast_frame_kernel" in e.name]
+    slow = [e.time_range for e in evs if first in e.name]
+    fast = [e.time_range for e in evs if last in e.name]
     if not slow or not fast:
         return None
     t0, t1 = min(r.start for r in slow), max(r.end for r in fast)
@@ -894,12 +969,15 @@ def decode_busy(prof) -> tuple[float, float] | None:
     return busy / (t1 - t0), (t1 - t0) / 1e3
 
 
-def compare_routes(tts, seen) -> None:
-    """The same call on both decode routes: ROUTE_RUNS synthesize calls on
-    each in turns (graph, eager, eager, graph, ...), then one profiled call
-    of each.  Prints frames/s and RTF of every call, the host's time per
-    decode frame (its dispatch of the frames, which enqueues and does not
-    wait) and the device's busy share of the decode span."""
+def compare_routes(tts, seen, markers=("slow_step_kernel", "fast_frame_kernel"),
+                   runs_each: int = ROUTE_RUNS, profile_tokens: int = MAX_TOKENS,
+                   label: str = "") -> None:
+    """The same call on both decode routes: ``runs_each`` synthesize calls
+    on each in turns (graph, eager, eager, graph, ...), then one profiled
+    call of each with ``profile_tokens`` frames.  Prints frames/s and RTF of
+    every call, the host's time per decode frame (its dispatch of the
+    frames, which enqueues and does not wait) and the device's busy share of
+    the decode span (``markers``: see :func:`decode_busy`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,29 +996,30 @@ def compare_routes(tts, seen) -> None:
 
     routes = {"graph": timed("graph", engine._decode), "eager": timed("eager", eager_route(engine))}
 
-    def call(route):
+    def call(route, max_tokens=MAX_TOKENS):
         with mock.patch.object(engine, "_decode", routes[route]):
             t = time.perf_counter()
             tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
-                           repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+                           repetition_penalty=SAMPLING[2], max_tokens=max_tokens)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         frames = seen["codes"].shape[1] + 1
         return frames / seen["gen_s"], wall / (len(seen["audio"]) / tts.sample_rate)
 
     runs: dict[str, list[tuple[float, float]]] = {"graph": [], "eager": []}
-    for i in range(ROUTE_RUNS):
+    for i in range(runs_each):
         for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
             runs[route].append(call(route))
     host_us = {r: h[0] / h[1] * 1e6 for r, h in host.items()}
     for route in ("graph", "eager"):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call(route)
-        busy = decode_busy(prof)
+            call(route, profile_tokens)
+        busy = decode_busy(prof, *markers)
         share = ("not measured (no decode kernels in the trace)" if busy is None else
-                 f"{100 * busy[0]:.1f}% of a {busy[1]:.1f} ms decode span (profiled call)")
-        print(f"route {route}: frames/s {[round(r, 1) for r, _ in runs[route]]}, RTF "
-              f"{[round(x, 4) for _, x in runs[route]]} over {ROUTE_RUNS} calls; host "
+                 f"{100 * busy[0]:.1f}% of a {busy[1]:.1f} ms decode span (profiled call "
+                 f"of {profile_tokens} frames)")
+        print(f"{label}route {route}: frames/s {[round(r, 1) for r, _ in runs[route]]}, RTF "
+              f"{[round(x, 4) for _, x in runs[route]]} over {runs_each} calls; host "
               f"{host_us[route]:.1f} us per decode frame; device busy {share}", flush=True)
 
 
@@ -990,8 +1069,9 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
     from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
-    modules = (sampler_kernel, slow_stack, fast_decoder)
-    for m in modules:
+    modules = {"sample_slow": sampler_kernel, "slow_stack_step": slow_stack,
+               "fast_decode_frame": fast_decoder}
+    for m in modules.values():
         m.launches = 0
     decode.graph_replays = decode.eager_frames = 0
     tts.metrics.reset()
@@ -1001,8 +1081,17 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
                          max_tokens=MAX_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {name: m.launches for (name, _, _), m in zip(KERNELS, modules)}
+    launches = {name: m.launches for name, m in modules.items()}
     replays, eager = decode.graph_replays, decode.eager_frames
+    # the route's kernels launch once per frame (the sampler and the fast
+    # decoder also for the prefill frame, the slow stack only in decode)
+    engine = tts.engine
+    rt = decode.route(engine.cfg, engine.params, 1, engine.engine_cfg.rep_penalty_window,
+                      **engine._options)
+    decoded = replays + eager
+    want = {"sample_slow": rt.sampler * (1 + decoded),
+            "slow_stack_step": rt.slow_stack * decoded,
+            "fast_decode_frame": rt.fast * (1 + decoded)}
 
     codes, audio = seen["codes"], seen["audio"]
     seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
@@ -1018,8 +1107,8 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
         fail(f"main: {label}: {n} samples for {frames} frames, want {(frames - 1) * hop}")
     if not np.isfinite(audio).all():
         fail(f"main: {label}: audio is not finite")
-    if not all(v > 0 for v in launches.values()):
-        fail(f"main: {label}: a kernel of the path did not run: {launches}")
+    if launches != want or not any(want.values()):
+        fail(f"main: {label}: kernel launches {launches}, the route implies {want}")
     if replays < frames - 2 or eager:
         fail(f"main: {label}: {replays} graph replays and {eager} eager decode frames")
     audio_s = n / tts.sample_rate
@@ -1027,15 +1116,114 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
           f"audio peak {float(np.abs(audio).max()):.4f}; {wall:.3f} s wall, "
           f"generation {seen['gen_s']:.3f} s = {frames / seen['gen_s']:.1f} frames/s, "
           f"RTF {wall / audio_s:.4f}", flush=True)
-    print(f"main: {label}: kernel launches {json.dumps(launches)}; {replays} decode frames "
-          f"replayed from captured graphs, {eager} eager", flush=True)
+    on = [n for n, k in (("slow stack", rt.slow_stack), ("sampler", rt.sampler),
+                         ("fast decoder", rt.fast)) if k]
+    print(f"main: {label}: kernel launches {json.dumps(launches)}, as the route implies "
+          f"(kernels: {', '.join(on)}); {replays} decode frames replayed from captured "
+          f"graphs, {eager} eager", flush=True)
     print(f"main: {label}: get_metrics() {json.dumps(tts.get_metrics())}", flush=True)
     return launches
 
 
-def profile_synthesize(tts, out: Path, frames: int) -> None:
+# --- phase 6: the float routes and the engine's options ----------------------------
+
+
+def randomize_extras(params, gen) -> None:
+    """Attention biases and qk-norm gains drawn from ``gen``, in place of the
+    zeros and ones of ``init_params``."""
+    import torch
+
+    for stack in ("layers", "fast_layers"):
+        for k, scale, base in (("wqkv_b", 0.1, 0.0), ("wo_b", 0.05, 0.0),
+                               ("q_norm", 0.2, 1.0), ("k_norm", 0.2, 1.0)):
+            t = params[stack].get(k)
+            if t is not None:
+                t.copy_(base + scale * torch.randn(t.shape, generator=gen, device=t.device))
+
+
+def phase_float(dev, profile_dir=None) -> int:
+    """``FishTTS(precision="bf16")``, the reference's default, at S1-mini
+    width with random weights: a plain call and one with the 661-frame
+    reference, each with the launch counts its route implies (the sampler
+    kernel once per frame, the slow stack and the fast decoder not at all);
+    the bf16 decode graph against the eager loop at B = 1 with its device
+    time per frame and node count; both decode routes in turns.  Then one
+    call each for fp16, fp32, int8 with an untied head (the head-less slow
+    stack, then the int8 head), int8 with ``sample_top_k`` 0 and 8, and
+    int8 with qk-norm and qkv and o biases in both stacks (the plain route
+    for both stacks), each with its route's launch counts.  Returns the
+    slow-stack launches of the untied-head call, the head-less kernel's."""
+    import torch
+
+    from fish_tts_tpu_torch import FishTTS
+    from fish_tts_tpu_torch.config import EngineConfig
+    from fish_tts_tpu_torch.models import dual_ar
+    from fish_tts_tpu_torch.testing import make_s1_mini_bundle
+
+    cfg, params, tok, vcfg, vparams = make_s1_mini_bundle(SEED, device=dev)
+
+    def build(label, precision, c, p, engine_config=None):
+        t0 = time.perf_counter()
+        tts = FishTTS(device="cuda", precision=precision, warmup=True, seed=SEED,
+                      engine_config=engine_config, _testing_bundle=(c, p, tok, vcfg, vparams))
+        torch.cuda.synchronize()
+        print(f"float: FishTTS({label}) at S1-mini width built and warmed up in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return tts
+
+    tts = build("bf16", "bf16", cfg, params)
+    seen = observe(tts)
+    synthesize_once(tts, seen, "bf16 synthesize")
+    synthesize_once(tts, seen, f"bf16 synthesize with a {REF_FRAMES}-frame reference",
+                    references=[reference_profile(cfg)])
+    e = tts.engine
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    graph_against_eager(e.params, e.cfg, e.ids, e.rope, ("bf16 B=1", 1, ()), gen, dev,
+                        **e._options)
+    # a frame of the plain route is thousands of small kernels: two calls a
+    # route, and a short profiled one
+    compare_routes(tts, seen, markers=("sample_slow_kernel", "sample_slow_kernel"),
+                   runs_each=2, profile_tokens=FLOAT_PROFILE_TOKENS, label="bf16 ")
+    if profile_dir is not None:
+        profile_synthesize(tts, Path(profile_dir), FLOAT_PROFILE_TOKENS + 1,
+                           max_tokens=FLOAT_PROFILE_TOKENS, name="bf16_synthesize")
+    del tts, seen, e
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(SEED + 17)
+    untied = dataclasses.replace(cfg, tie_word_embeddings=False)
+    untied_params = dict(params, output=(torch.randn((cfg.vocab_size, cfg.dim), generator=gen,
+                                                     device=dev) * 0.02).to(torch.bfloat16))
+    flags = dataclasses.replace(cfg, attention_qkv_bias=True, attention_o_bias=True,
+                                attention_qk_norm=True, fast_attention_qkv_bias=True,
+                                fast_attention_o_bias=True, fast_attention_qk_norm=True)
+    calls = [("fp16", "fp16", cfg, lambda: params, None),
+             ("fp32", "fp32", cfg, lambda: params, None),
+             ("int8 untied head", "int8", untied, lambda: untied_params, None),
+             ("int8 sample_top_k=0", "int8", cfg, lambda: params, EngineConfig(sample_top_k=0)),
+             ("int8 sample_top_k=8", "int8", cfg, lambda: params, EngineConfig(sample_top_k=8)),
+             ("int8 qk-norm, qkv and o biases", "int8", flags,
+              lambda: dual_ar.init_params(gen, flags, torch.bfloat16), None)]
+    headless = 0
+    for label, precision, c, make, engine_config in calls:
+        p = make()
+        if c is flags:
+            randomize_extras(p, gen)
+        tts = build(label, precision, c, p, engine_config)
+        launches = synthesize_once(tts, observe(tts), label)
+        if c is untied:
+            headless = launches["slow_stack_step"]
+        del tts, p
+        torch.cuda.empty_cache()
+    return headless
+
+
+def profile_synthesize(tts, out: Path, frames: int, max_tokens: int = MAX_TOKENS,
+                       name: str = "synthesize") -> None:
     """One more synthesize under torch.profiler: device time by kernel and the
-    device's busy share of the wall time; the whole table goes to ``out``."""
+    device's busy share of the wall time; the whole table goes to
+    ``out/{name}_kernels.txt``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1045,7 +1233,7 @@ def profile_synthesize(tts, out: Path, frames: int) -> None:
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
-                       repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
+                       repetition_penalty=SAMPLING[2], max_tokens=max_tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
@@ -1059,19 +1247,20 @@ def profile_synthesize(tts, out: Path, frames: int) -> None:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    (out / "synthesize_kernels.txt").write_text(
+    (out / f"{name}_kernels.txt").write_text(
         "".join(f"{ms:10.3f} ms {n:7d} x {key}\n" for ms, n, key in rows))
-    print(f"profile: {wall_ms:.1f} ms wall for {frames} frames, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%)", flush=True)
+    print(f"profile {name}: {wall_ms:.1f} ms wall for {frames} frames, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%)", flush=True)
     for ms, n, key in rows[:12]:
-        print(f"profile: {ms:9.3f} ms {n:6d} x {key[:110]}", flush=True)
+        print(f"profile {name}: {ms:9.3f} ms {n:6d} x {key[:110]}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one more synthesize call (its kernel table goes to DIR) "
-                         "and count the sampler's rounds on the main path")
+                    help="also profile one more synthesize call of the int8 and of the bf16 "
+                         "route (their kernel tables go to DIR) and count the sampler's "
+                         "rounds on the main path")
     args = ap.parse_args()
 
     if not (ROOT / "fish_tts_tpu_torch" / "csrc").is_dir():
@@ -1106,6 +1295,7 @@ def main() -> int:
     results = phase_kernels(dev)
     phase_graph(dev)
     launches = phase_main(dev, args.profile)
+    launches[HEADLESS] = phase_float(dev, args.profile)
 
     records = []
     for name, src, replaces in KERNELS:

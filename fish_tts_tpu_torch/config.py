@@ -4,9 +4,9 @@ The port's own copy of ``fish_tts_tpu/config.py``: the same frozen
 dataclasses, field names and defaults, so a ``config.json`` or
 ``vocoder_config.json`` written for one package loads in the other.
 
-``EngineConfig`` keeps every field, but the port runs only the int8 kernel
-path of single-stream synthesis so far; a field whose path is not ported
-raises when set to a non-default value instead of being silently ignored.
+``EngineConfig`` keeps every field.  The port runs one device, so
+``tp_size`` and ``dp_size`` raise when set to anything but 1 instead of
+being silently ignored.
 """
 
 from __future__ import annotations
@@ -22,13 +22,6 @@ def find_multiple(n: int, k: int) -> int:
     if n % k == 0:
         return n
     return n + k - (n % k)
-
-
-# DualARConfig flags whose path the port does not have yet.
-UNPORTED_ATTENTION_FLAGS = (
-    "attention_qkv_bias", "attention_o_bias", "attention_qk_norm",
-    "fast_attention_qkv_bias", "fast_attention_o_bias", "fast_attention_qk_norm",
-)
 
 
 @dataclass(frozen=True)
@@ -112,20 +105,9 @@ class DualARConfig:
             attention_o_bias=self.fast_attention_o_bias,
         )
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a flag whose path the port does
-        not have: attention biases and qk-norm (ROADMAP.md §1.3), which the
-        port's stack and kernels would otherwise drop without an error."""
-        for name in UNPORTED_ATTENTION_FLAGS:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"DualARConfig.{name}=True: attention biases and qk-norm are not "
-                    "ported yet (ROADMAP.md §1.3)")
-
     @staticmethod
     def from_json(path: str | Path) -> "DualARConfig":
-        """Load from a checkpoint directory or config.json; raises for the
-        flags of :meth:`check_ported`."""
+        """Load from a checkpoint directory or config.json."""
         path = Path(path)
         if path.is_dir():
             path = path / "config.json"
@@ -134,9 +116,7 @@ class DualARConfig:
         if data.get("model_type") != "dual_ar":
             raise ValueError(f"Unknown model type: {data.get('model_type')}")
         known = {f.name for f in dataclasses.fields(DualARConfig)}
-        cfg = DualARConfig(**{k: v for k, v in data.items() if k in known})
-        cfg.check_ported()
-        return cfg
+        return DualARConfig(**{k: v for k, v in data.items() if k in known})
 
 
 @dataclass(frozen=True)
@@ -255,11 +235,8 @@ class VocoderConfig:
 # EngineConfig fields whose code path the port does not have yet, with the
 # only value it accepts.
 _UNPORTED_ENGINE_FIELDS = {
-    "sample_top_k": -1,      # the XLA samplers (top-k, full sort)
-    "approx_top_k": False,
-    "tp_size": 1,            # multi-device sharding
+    "tp_size": 1,            # multi-device sharding (ROADMAP.md §1.11)
     "dp_size": 1,
-    "fast_kernel": True,     # the float (non-kernel) decode loop
 }
 
 
@@ -273,9 +250,13 @@ class EngineConfig:
       decode call (first call after prefill, streaming, non-streaming).
     - ``kv_bucket_step``: attention reads ``ceil(pos/step)*step`` cache rows.
     - ``rep_penalty_window``: repetition-penalty window in frames.
-
-    The remaining fields exist for ``config.json`` compatibility; only their
-    defaults run in the port (see ``_UNPORTED_ENGINE_FIELDS``).
+    - ``sample_top_k``: -1 the sort-free threshold top-p (the sampler
+      kernel's), 0 an exact full sort, > 0 a truncated candidate search;
+      ``approx_top_k`` asks for an approximate search, which the port runs
+      exactly (``engine/sampling.py``).
+    - ``fast_kernel``: False keeps every frame on the plain PyTorch route.
+    - ``tp_size`` / ``dp_size`` exist for ``config.json`` compatibility; only
+      1 runs in the port (see ``_UNPORTED_ENGINE_FIELDS``).
     """
 
     prompt_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)

@@ -33,6 +33,11 @@
 //   5. W_2 + residual
 // and after the last layer
 //   6. final RMSNorm + the head, its rows streamed with 16-byte loads.
+// A model with an untied head runs the variant without phase 6 (the head
+// pointers null, V = 0), the JAX kernel's `with_head = False`
+// (fish_tts_tpu/ops/slow_stack.py:405, :544-546): the 28 layers and the new
+// K/V rows only, and the hidden state for the caller's own head.  It also
+// drops the barrier after the last layer, which only the head phase needs.
 // Block i owns the same output rows of every matrix at every layer
 // (persistent.cuh).  The copy engine brings the rows, scales and norm
 // weight of the block's weighted phases into a ring of one or two
@@ -87,9 +92,9 @@ struct SlowArgs {
   const int8_t* w3; const float* w3_s;
   const int8_t* w2; const float* w2_s;
   const float* final_norm;
-  const int8_t* head; const float* head_s;
+  const int8_t* head; const float* head_s;  // null (and V = 0): no head phase
   float* hidden;      // (B, D) the residual stream, the final hidden state
-  float* logits;      // (B, V)
+  float* logits;      // (B, V), or null without a head
   float* qkv;         // (B, H*Dh + 2*Hkv*Dh)
   float* hbuf;        // (B, I) SwiGLU hidden
   float* obuf;        // (B, H*Dh) attention output
@@ -638,12 +643,15 @@ __global__ void __launch_bounds__(kThreads, 1) slow_step_kernel(const SlowArgs a
     if (x_owner) x_own += row_value<MAXB>(sp, slot(n + 3), part, S, xj, xb).x;
     publish_x();
     finish();
-    barrier();
+    // the head-less variant ends here: the kernel's end publishes the hidden
+    if (l + 1 < L || a.head != nullptr || a.clock != nullptr) barrier();
   }
 
   // phase 6: final RMSNorm + the tied head
-  stage_rms(a.hidden, B, D, a.final_norm, a.eps, xs, xf, red, rstd);
-  head_rows<MAXB>(a, xs);
+  if (a.head != nullptr) {
+    stage_rms(a.hidden, B, D, a.final_norm, a.eps, xs, xf, red, rstd);
+    head_rows<MAXB>(a, xs);
+  }
   if (a.clock != nullptr) barrier();  // the clock's last stamp: the head's end
 }
 
@@ -726,7 +734,8 @@ extern "C" int fts_slow_stack_step(void* const* p, const int* d, float eps, void
   if (a.B < 1 || a.B > kMaxBatch || a.L < 1 || a.Dh > kMaxHeadDim || a.Dh % 2 != 0 ||
       a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxGroup || lpr < 1 || 32 % lpr != 0 ||
       lpr * 16 != a.Dh * (kv_bf16 ? 2 : 4) || a.D % 16 != 0 || a.I % 16 != 0 ||
-      (a.H * a.Dh) % 16 != 0 || a.read_len < 1 || a.read_len > a.S)
+      (a.H * a.Dh) % 16 != 0 || a.read_len < 1 || a.read_len > a.S || a.V < 0 ||
+      (a.V == 0) != (p[kHead] == nullptr) || (a.V == 0) != (p[kLogits] == nullptr))
     return (int)cudaErrorInvalidValue;
   a.n_chunks = (a.read_len + kChunk - 1) / kChunk;
   a.x_in = static_cast<const float*>(p[kX]);

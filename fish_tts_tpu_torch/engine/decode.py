@@ -1,14 +1,11 @@
-"""The DualAR decode engine: prefill plus chunked decode on the kernel path.
+"""The DualAR decode engine: prefill plus chunked decode.
 
-Port of ``fish_tts_tpu/engine/decode.py`` for the path that runs the three
-kernels (the JAX package's ``fast_kernel=True`` route):
+Port of ``fish_tts_tpu/engine/decode.py``:
 
 - ``prefill``: the whole (bucket-padded) prompt through the plain PyTorch
-  transformer stack, writing the KV cache, then the first frame sampled
-  through the sampler and fast-decoder kernels;
+  transformer stack, writing the KV cache, then the first frame sampled;
 - ``decode_frame``: one frame on the state's device tensors alone: embed
-  the last frame, run the slow-stack kernel against the read-only cache,
-  write the returned K/V rows at each stream's position, sample the next
+  the last frame, run the slow stack against the cache, sample the next
   frame, and update the state in place.  It reads nothing back to the host,
   so a CUDA graph can hold it;
 - ``decode_chunk``: ``decode_frame`` in an eager loop, on either device
@@ -17,12 +14,32 @@ kernels (the JAX package's ``fast_kernel=True`` route):
   persistent state and replayed once per frame (the engine's route on the
   card): the host pays one graph launch per frame and reads nothing back.
 
+Routes.  Each frame has three parts, each on its kernel or on plain
+PyTorch, decided per call by the reference's gates (:func:`route`, from the
+config, the parameters, B, the penalty window and the sampler options
+alone, so the CPU takes the route the card takes):
+
+- the slow stack: ``ops/slow_stack`` (int8, no attention biases or
+  qk-norm; with an untied head the kernel runs without its head and
+  ``dual_ar.lm_logits`` follows), else ``dual_ar.slow_forward`` against
+  the cache plus ``lm_logits``;
+- the slow token: ``ops/sampler_kernel`` (``top_k == -1``), else
+  ``sampling.sample``;
+- the residual books: ``ops/fast_decoder`` (int8, ``top_k <= 0``, no fast
+  attention biases or qk-norm), else the loop over ``dual_ar.fast_step``
+  with ``sampling.sample`` at ``res_k = min(256, Vr)`` candidates when
+  ``top_k > 0``.
+
+``fast_kernel=False`` puts every part on plain PyTorch.  A kernel that
+fails raises; only a gate that refuses leads to a plain route.
+
 All-done skip, as the reference's per-frame ``lax.cond``: with ``B > 1`` or
 ``early_exit`` each frame computes ``skip = done.all()`` on the device; the
-kernels return at once when it is set, and every state update is
-``where(skip, old, new)``.  A skipped frame leaves the state as it was,
-emits ``state["frame"]`` and marks nothing emitted.  Prefill's first chunk
-keeps the straight-line route.
+kernels return at once when it is set, and every state update (the plain
+slow route's cache writes included) is ``where(skip, old, new)``.  A
+skipped frame leaves the state as it was, emits ``state["frame"]`` and
+marks nothing emitted.  Prefill's first chunk keeps the straight-line
+route.
 
 Replicated reference quirks, as in the JAX package: the slow-token penalty
 reads one window *column* (:func:`penalty_column`); the fast position 0
@@ -33,11 +50,12 @@ RNG.  The default source (:class:`GumbelNoise`) is counter-based: lane i
 of slot b at step s draws from a 32-bit integer hash of (seed, slot, step,
 lane) computed with torch integer ops on the device, so frames depend on
 neither the batch nor how decode is cut into chunks, and the CPU and the
-card draw the same bits.  A test may instead pass a host source called per
-(slot, step) that returns ``(g_slow (V,), g_fast (K-1, Vr))``, the draws of
-the JAX kernel path; it runs only eagerly, since it reads the steps back.
-The prefill frame uses step :data:`PREFILL_STEP`, which no decode step
-reaches.
+card draw the same bits.  Each route reads the first lanes it needs (see
+:class:`Draws`).  A test may instead pass a host source called per (slot,
+step, Draws) that returns ``(g_slow (slow,), g_fast (K-1, fast))``, the
+draws of the JAX package's route; it runs only eagerly, since it reads the
+steps back.  The prefill frame uses step :data:`PREFILL_STEP`, which no
+decode step reaches.
 
 State is a dict of device tensors, all updated in place (a captured graph
 holds their addresses): ``kv`` {"k", "v"} (L, B, Hkv, S, Dh), ``frame``
@@ -50,15 +68,18 @@ source's key of each slot).
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
 from fish_tts_tpu_torch.config import DualARConfig
+from fish_tts_tpu_torch.engine.sampling import candidate_width, sample
 from fish_tts_tpu_torch.models import dual_ar
 from fish_tts_tpu_torch.models.dual_ar import Params, TokenIds
 from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 from fish_tts_tpu_torch.ops.attention import NEG_INF
+from fish_tts_tpu_torch.utils.quantize import qgather
 
 WINDOW = 16  # default repetition-penalty window
 PREFILL_STEP = 0x7FFFFFFF  # noise step of the prefill frame
@@ -68,8 +89,59 @@ PREFILL_STEP = 0x7FFFFFFF  # noise step of the prefill frame
 eager_frames = 0
 graph_replays = 0
 
+RES_K = 256  # residual-book candidates when top_k > 0 (the JAX package's res_k)
+
 State = dict[str, Any]
-HostNoise = Callable[[int, int], tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class Draws:
+    """The noise lanes a frame reads: ``slow`` for the slow token, ``fast``
+    per residual book; ``per_book`` when the JAX package draws each book
+    from its own key (its plain loop) rather than one (K-1, Vr) block (its
+    fast-decoder kernel)."""
+
+    slow: int
+    fast: int
+    per_book: bool
+
+
+@dataclass(frozen=True)
+class Route:
+    """Which parts of a frame run their kernel, and the sampler options."""
+
+    slow_stack: bool
+    sampler: bool
+    fast: bool
+    top_k: int = -1
+    approx: bool = False
+
+    @property
+    def res_k(self) -> int:
+        """The residual books' sampler mode on the plain loop."""
+        return RES_K if self.top_k > 0 else self.top_k
+
+    def draws(self, cfg: DualARConfig) -> Draws:
+        V, Vr = cfg.vocab_size, cfg.residual_codebook_size
+        slow = V if self.sampler else candidate_width(V, self.top_k)
+        if self.fast:
+            return Draws(slow, Vr, per_book=False)
+        return Draws(slow, candidate_width(Vr, min(self.res_k, Vr)), per_book=True)
+
+
+def route(cfg: DualARConfig, params: Params, batch: int, window: int, *, top_k: int = -1,
+          approx: bool = False, fast_kernel: bool = True) -> Route:
+    """The reference's per-call gates: each part of the frame on its kernel
+    when ``fast_kernel`` is set and the kernel's ``supports`` takes it."""
+    return Route(
+        slow_stack=fast_kernel and slow_stack.supports(cfg, params, batch),
+        sampler=fast_kernel and sampler_kernel.supports(batch, top_k),
+        fast=(fast_kernel and top_k <= 0
+              and fast_decoder.supports(cfg, params, batch, window)),
+        top_k=top_k, approx=approx)
+
+
+HostNoise = Callable[[int, int, Draws], tuple[torch.Tensor, torch.Tensor]]
 
 _M32 = 0xFFFFFFFF
 # Odd multipliers below 2**31: a 32-bit word times one stays inside int64.
@@ -110,7 +182,8 @@ def gumbel_draws(keys: torch.Tensor, step: torch.Tensor, n: int) -> torch.Tensor
 
 def default_draws(cfg: DualARConfig, keys: torch.Tensor, step: torch.Tensor):
     """The default source's draws of the slots keyed ``keys`` (B,) int64 at
-    ``step`` (B,), on their device: ((B, V), (B, K-1, Vr)) f32."""
+    ``step`` (B,), on their device: ((B, V), (B, K-1, Vr)) f32.  A plain
+    route reads the first lanes of each row it needs."""
     V, K1, Vr = cfg.vocab_size, cfg.num_codebooks - 1, cfg.residual_codebook_size
     g = gumbel_draws(keys, step, V + K1 * Vr)
     return g[:, :V].float().contiguous(), g[:, V:].float().reshape(-1, K1, Vr)
@@ -133,18 +206,19 @@ class GumbelNoise:
         return [_mix32(_mix32(_mix32(s) ^ lo) ^ hi) for s in slots]
 
 
-def _host_draws(noise: HostNoise, step: torch.Tensor, device):
+def _host_draws(noise: HostNoise, step: torch.Tensor, draws: Draws, device):
     """A host source's draws of every slot at its own step (reads the steps
-    back, so it runs only eagerly): ((B, V), (B, K-1, Vr))."""
-    draws = [noise(b, s) for b, s in enumerate(step.tolist())]
-    g_slow = torch.stack([torch.as_tensor(d[0]) for d in draws]).to(device, torch.float32)
-    g_fast = torch.stack([torch.as_tensor(d[1]) for d in draws]).to(device, torch.float32)
+    back, so it runs only eagerly): ((B, slow), (B, K-1, fast))."""
+    got = [noise(b, s, draws) for b, s in enumerate(step.tolist())]
+    g_slow = torch.stack([torch.as_tensor(d[0]) for d in got]).to(device, torch.float32)
+    g_fast = torch.stack([torch.as_tensor(d[1]) for d in got]).to(device, torch.float32)
     return g_slow.contiguous(), g_fast.contiguous()
 
 
-def _draw(cfg: DualARConfig, state: State, noise: HostNoise | None, step: torch.Tensor):
+def _draw(cfg: DualARConfig, state: State, noise: HostNoise | None, step: torch.Tensor,
+          draws: Draws):
     if noise is not None:
-        return _host_draws(noise, step, step.device)
+        return _host_draws(noise, step, draws, step.device)
     return default_draws(cfg, state["noise_key"], step)
 
 
@@ -208,33 +282,62 @@ def penalty_column(prev: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     return prev.gather(2, col[:, None, None].expand(B, K1, 1))[:, :, 0].contiguous()
 
 
-def _sample_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
+def _fast_loop(params: Params, cfg: DualARConfig, rope: Params, rt: Route, h_fast, a,
+               prev_rows, g_fast, sampling) -> torch.Tensor:
+    """The residual books on plain PyTorch: a fresh fast cache, position 0 on
+    the projected hidden (its logits dropped), then one ``fast_step`` and
+    one ``sample`` per book.  Returns (B, K-1) int32."""
+    temp, tp, rep = sampling
+    dt = params["norm"].dtype
+    Vr = cfg.residual_codebook_size
+    cache = dual_ar.new_fast_cache(params, cfg, h_fast.shape[0])
+    dual_ar.fast_step(params, cfg, rope, h_fast, 0, cache)
+    code, codes = a, []
+    for cb in range(1, cfg.num_codebooks):
+        emb = qgather(params["fast_embeddings"], code.long(), dt)[:, None]
+        logits = dual_ar.fast_step(params, cfg, rope, emb, cb, cache)[:, -1, :Vr]
+        code = sample(g_fast[:, cb - 1], logits, temp, tp, rep, prev_rows[:, cb - 1],
+                      top_k=rt.res_k, approx=rt.approx)
+        codes.append(code)
+    return torch.stack(codes, dim=1)
+
+
+def _sample_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params, rt: Route,
                   gumbel, hidden_last, logits, sampling, prev_col, prev_rows,
                   skip=None) -> torch.Tensor:
-    """Sample one (B, 1+K) frame: the slow token through the sampler kernel,
-    then the residual codes through the fast-decoder kernel."""
+    """Sample one (B, 1+K) frame: the slow token, then the residual codes,
+    each on the route ``rt`` gives it."""
     g_slow, g_fast = gumbel
     temp, tp, rep = sampling
-    token = sampler_kernel.sample_slow(logits.float().contiguous(), prev_col, g_slow,
-                                       temp, tp, rep, skip)
+    if rt.sampler:
+        token = sampler_kernel.sample_slow(logits.float().contiguous(), prev_col, g_slow,
+                                           temp, tp, rep, skip)
+    else:
+        token = sample(g_slow, logits, temp, tp, rep, prev_col, top_k=rt.top_k,
+                       approx=rt.approx)
     h_fast = dual_ar.project_fast_in(params, hidden_last).to(params["norm"].dtype)
     a = torch.clamp(token - ids.semantic_begin, 0, cfg.codebook_size - 1).to(torch.int32)
-    codes, _ = fast_decoder.fast_decode_frame(
-        params, cfg, rope["fast"], h_fast[:, 0], a, prev_rows, g_fast, temp, tp, rep,
-        window=prev_rows.shape[-1], skip=skip)
+    if rt.fast:
+        codes, _ = fast_decoder.fast_decode_frame(
+            params, cfg, rope["fast"], h_fast[:, 0], a, prev_rows, g_fast, temp, tp, rep,
+            window=prev_rows.shape[-1], skip=skip)
+    else:
+        codes = _fast_loop(params, cfg, rope, rt, h_fast, a, prev_rows, g_fast, sampling)
     return torch.cat([token[:, None], a[:, None], codes], dim=1).to(torch.int32)
 
 
 @torch.no_grad()
 def prefill(params: Params, rope: Params, state: State, prompt: torch.Tensor,
             lengths: torch.Tensor, noise, temperature, top_p, repetition_penalty,
-            *, cfg: DualARConfig, ids: TokenIds, kv_bucket: int | None = None):
+            *, cfg: DualARConfig, ids: TokenIds, kv_bucket: int | None = None,
+            top_k: int = -1, approx: bool = False, fast_kernel: bool = True):
     """Whole-prompt forward at positions ``state.pos + [0, Tb)`` plus the
     first frame, with no penalty.  ``prompt`` (B, 1+K, Tb) is right-padded;
     ``lengths`` (B,) are the real lengths.  ``kv_bucket`` bounds the live
     cache prefix (0 for a fresh sequence, None reads it all).  Loads the
     sampling parameters and the noise keys into the state for the frames
-    that follow.  Returns (state, frame (B, 1+K))."""
+    that follow.  ``top_k``, ``approx`` and ``fast_kernel`` choose the
+    frame's route (:func:`route`).  Returns (state, frame (B, 1+K))."""
     B, _, Tb = prompt.shape
     dev = prompt.device
     set_sampling(state, temperature, top_p, repetition_penalty)
@@ -261,8 +364,10 @@ def prefill(params: Params, rope: Params, state: State, prompt: torch.Tensor,
     temp, tp, _ = state["sampling"]
     no_penalty = torch.ones_like(temp)  # exact no-op: prefill has no penalty
     W = state["prev"].shape[2]
+    rt = route(cfg, params, B, W, top_k=top_k, approx=approx, fast_kernel=fast_kernel)
     zeros = functools.partial(torch.zeros, dtype=torch.int32, device=dev)
-    frame = _sample_frame(params, cfg, ids, rope, _draw(cfg, state, host_noise, step),
+    frame = _sample_frame(params, cfg, ids, rope, rt,
+                          _draw(cfg, state, host_noise, step, rt.draws(cfg)),
                           hidden_last, logits, (temp, tp, no_penalty), zeros((B, 1)),
                           zeros((B, cfg.num_codebooks - 1, W)))
     state["frame"].copy_(frame)
@@ -286,22 +391,27 @@ class _Ring:
         self.t.add_(1)
 
 
-def decode_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
-                 state: State, noise: HostNoise | None = None, *,
-                 kv_bucket: int | None = None, skip_done: bool = False,
-                 ring: _Ring | None = None):
-    """One decode frame, in place on the state's tensors; records the frame
-    and its emitted flags in ``ring``.  ``noise`` None draws the default
-    noise from ``state["noise_key"]``; ``skip_done`` enables the all-done
-    skip.  Returns (frame (B, 1+K), emitted (B,))."""
-    kv, pos, prev, step, done = (state[k] for k in ("kv", "pos", "prev", "step", "done"))
-    last = state["frame"]
-    B, K1 = last.shape
+def _slow_step(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params, state: State,
+               rt: Route, kv_bucket: int | None, skip):
+    """The slow stack for one token per stream on the route ``rt`` gives it,
+    each stream's K/V row written at its position (kept as it was under a
+    set ``skip``).  Returns (hidden (B, 1, D), logits (B, V)) in the
+    parameters' dtype."""
+    kv, pos, last = state["kv"], state["pos"], state["frame"]
+    B = last.shape[0]
     S = kv["k"].shape[3]
-    W = prev.shape[2]
     dev = pos.device
-    skip = done.all() if skip_done else None
-
+    dt = params["norm"].dtype
+    if not rt.slow_stack:
+        R = S if kv_bucket is None else kv_bucket
+        zero = torch.zeros((), device=dev)
+        # the cache is valid strictly below pos; the token is the block's self-key
+        cache_bias = torch.where(torch.arange(R, device=dev)[None, None, None, :]
+                                 < pos[:, None, None, None], zero, NEG_INF)
+        hidden = dual_ar.slow_forward(params, cfg, ids, rope, last[:, :, None], pos[:, None],
+                                      kv, cache_bias, torch.zeros((1, 1, 1, 1), device=dev),
+                                      read_len=kv_bucket, skip=skip)
+        return hidden, dual_ar.lm_logits(params, cfg, hidden)[:, -1]
     x_emb = dual_ar.embed_inputs(params, cfg, ids, last[:, :, None])
     hidden, new_k, new_v, logits = slow_stack.slow_stack_step(
         params, cfg, rope["slow"], x_emb[:, 0], kv, pos,
@@ -313,10 +423,35 @@ def decode_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
         if skip is not None:
             row = torch.where(skip, cache[:, b_idx, :, p_idx], row)
         cache[:, b_idx, :, p_idx] = row
-    dt = params["norm"].dtype
-    frame = _sample_frame(params, cfg, ids, rope, _draw(cfg, state, noise, step),
-                          hidden.to(dt), logits.to(dt), state["sampling"],
-                          penalty_column(prev, step), prev[:, 2:, :].contiguous(), skip)
+    hidden = hidden.to(dt)
+    if logits is None:  # the kernel ran without a head: the untied one follows
+        return hidden, dual_ar.lm_logits(params, cfg, hidden)[:, -1]
+    return hidden, logits.to(dt)
+
+
+def decode_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
+                 state: State, noise: HostNoise | None = None, *,
+                 kv_bucket: int | None = None, skip_done: bool = False,
+                 ring: _Ring | None = None, top_k: int = -1, approx: bool = False,
+                 fast_kernel: bool = True):
+    """One decode frame, in place on the state's tensors; records the frame
+    and its emitted flags in ``ring``.  ``noise`` None draws the default
+    noise from ``state["noise_key"]``; ``skip_done`` enables the all-done
+    skip; ``top_k``, ``approx`` and ``fast_kernel`` choose the route
+    (:func:`route`).  Returns (frame (B, 1+K), emitted (B,))."""
+    pos, prev, step, done = (state[k] for k in ("pos", "prev", "step", "done"))
+    last = state["frame"]
+    B, K1 = last.shape
+    S = state["kv"]["k"].shape[3]
+    W = prev.shape[2]
+    skip = done.all() if skip_done else None
+    rt = route(cfg, params, B, W, top_k=top_k, approx=approx, fast_kernel=fast_kernel)
+
+    hidden, logits = _slow_step(params, cfg, ids, rope, state, rt, kv_bucket, skip)
+    frame = _sample_frame(params, cfg, ids, rope, rt,
+                          _draw(cfg, state, noise, step, rt.draws(cfg)), hidden, logits,
+                          state["sampling"], penalty_column(prev, step),
+                          prev[:, 2:, :].contiguous(), skip)
 
     # done streams hold their frame and position; live ones advance, clamped.
     # A skipped frame has every stream done, so these leave the state as it was.
@@ -345,11 +480,13 @@ def decode_frame(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
 @torch.no_grad()
 def decode_chunk(params: Params, rope: Params, state: State, noise, temperature,
                  top_p, repetition_penalty, *, cfg: DualARConfig, ids: TokenIds,
-                 num_frames: int, kv_bucket: int | None = None, early_exit: bool = False):
+                 num_frames: int, kv_bucket: int | None = None, early_exit: bool = False,
+                 top_k: int = -1, approx: bool = False, fast_kernel: bool = True):
     """Decode ``num_frames`` frames eagerly.  Returns (state, frames (B, n,
     1+K), emitted (B, n)); ``emitted[b, t]`` is False for frames after
     stream b hit EOS (the EOS frame itself is emitted).  With ``early_exit``
-    (always for B > 1) a frame after every stream is done is skipped."""
+    (always for B > 1) a frame after every stream is done is skipped.
+    ``top_k``, ``approx`` and ``fast_kernel`` choose the route."""
     global eager_frames
     set_sampling(state, temperature, top_p, repetition_penalty)
     host_noise = set_noise(state, noise)
@@ -357,7 +494,8 @@ def decode_chunk(params: Params, rope: Params, state: State, noise, temperature,
     ring = _Ring(B, num_frames, K1, state["frame"].device)
     for _ in range(num_frames):
         decode_frame(params, cfg, ids, rope, state, host_noise, kv_bucket=kv_bucket,
-                     skip_done=B > 1 or early_exit, ring=ring)
+                     skip_done=B > 1 or early_exit, ring=ring, top_k=top_k, approx=approx,
+                     fast_kernel=fast_kernel)
         eager_frames += 1
     return state, ring.frames, ring.emitted
 
@@ -366,19 +504,22 @@ def decode_chunk(params: Params, rope: Params, state: State, noise, temperature,
 def prefill_chunk(params: Params, rope: Params, state: State, prompt: torch.Tensor,
                   lengths: torch.Tensor, noise, temperature, top_p,
                   repetition_penalty, *, cfg: DualARConfig, ids: TokenIds, num_frames: int,
-                  kv_bucket_prefill: int | None = None, kv_bucket: int | None = None):
+                  kv_bucket_prefill: int | None = None, kv_bucket: int | None = None,
+                  top_k: int = -1, approx: bool = False, fast_kernel: bool = True):
     """Prefill plus the first ``num_frames`` decode frames (straight-line
     for B = 1).  Returns (state, frames (B, 1+num_frames, 1+K), emitted)
     with frame 0 the prefill frame, always emitted."""
+    opts = dict(top_k=top_k, approx=approx, fast_kernel=fast_kernel)
     state, first = prefill(params, rope, state, prompt, lengths, noise, temperature, top_p,
-                           repetition_penalty, cfg=cfg, ids=ids, kv_bucket=kv_bucket_prefill)
+                           repetition_penalty, cfg=cfg, ids=ids, kv_bucket=kv_bucket_prefill,
+                           **opts)
     B = first.shape[0]
     ones = torch.ones((B, 1), dtype=torch.bool, device=first.device)
     if num_frames == 0:
         return state, first[:, None], ones
     state, frames, emitted = decode_chunk(
         params, rope, state, noise, temperature, top_p, repetition_penalty,
-        cfg=cfg, ids=ids, num_frames=num_frames, kv_bucket=kv_bucket)
+        cfg=cfg, ids=ids, num_frames=num_frames, kv_bucket=kv_bucket, **opts)
     return (state, torch.cat([first[:, None], frames], dim=1),
             torch.cat([ones, emitted], dim=1))
 
@@ -389,26 +530,32 @@ class DecodeGraph:
 
     The graph holds the addresses of everything the frame reads and writes:
     the state's tensors (updated in place), the KV cache, the sampling
-    columns and noise keys (loaded by :func:`prefill`), the kernels'
-    prepared weights and scratch, and its own output ring of ``capacity``
-    frames with the device counter that places each frame.  So it serves
+    columns and noise keys (loaded by :func:`prefill`), the parameters, the
+    kernels' prepared weights and scratch (with or without the slow head),
+    and its own output ring of ``capacity`` frames with the device counter
+    that places each frame.  ``options`` are :func:`decode_frame`'s
+    ``top_k``, ``approx`` and ``fast_kernel``: the route is fixed at
+    capture.  So it serves
     any state values and any ``num_frames``, but only this state object.
     Capture runs one eager frame first (the kernels' first-use setup),
     then restores the state.  A failure raises; there is no eager fallback.
-    Capture launches nothing: the kernels' launch counts are taken back
-    after it, and each replay adds the launches it makes.
+    Neither that frame nor the capture counts in the kernels' launch
+    counts; each replay adds the launches it makes.
     """
 
     def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
-                 state: State, *, kv_bucket: int | None, skip_done: bool, capacity: int):
+                 state: State, *, kv_bucket: int | None, skip_done: bool, capacity: int,
+                 **options):
         dev = state["frame"].device
         if dev.type != "cuda":
             raise ValueError("DecodeGraph: the state must be on a CUDA device")
         B, K1 = state["frame"].shape
         self.ring = _Ring(B, capacity, K1, dev)
         frame = functools.partial(decode_frame, params, cfg, ids, rope, state, None,
-                                  kv_bucket=kv_bucket, skip_done=skip_done, ring=self.ring)
+                                  kv_bucket=kv_bucket, skip_done=skip_done, ring=self.ring,
+                                  **options)
         saved = [t.clone() for t in _tensors(state)]
+        counts = [m.launches for m in _KERNELS]
         with torch.no_grad():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -420,8 +567,10 @@ class DecodeGraph:
             with torch.cuda.graph(self.graph):
                 frame()
             self._launches = [m.launches - n for m, n in zip(_KERNELS, before)]
-            for m, n in zip(_KERNELS, self._launches):
-                m.launches -= n
+            # the warm-up frame is undone and the capture only records its
+            # launches: neither counts
+            for m, n in zip(_KERNELS, counts):
+                m.launches = n
             for t, old in zip(_tensors(state), saved):
                 t.copy_(old)
         # what the graph reads must outlive it

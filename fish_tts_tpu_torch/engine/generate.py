@@ -13,7 +13,10 @@ The engine keeps one decode state per (batch, cache allocation) and resets
 it in place for each generation.  On the card every decode frame after
 prefill is a replay of a :class:`~fish_tts_tpu_torch.engine.decode.DecodeGraph`
 captured on that state, one per (batch, cache rows, read rows, window,
-dtype, skip); on the CPU the same frame runs eagerly.  ``metrics`` times
+dtype, skip, route); on the CPU the same frame runs eagerly.  The route
+follows ``EngineConfig.sample_top_k``, ``approx_top_k`` and ``fast_kernel``
+through the reference's per-call gates (``decode.route``); the engine logs
+once when an option turns a kernel off.  ``metrics`` times
 the host-visible fetch of each chunk ("prefill" for the first, "decode"
 after) and counts the tokens, as the JAX engine does.
 """
@@ -109,6 +112,18 @@ class GenerationEngine:
             im_end=tokenizer.im_end_id,
         )
         self.rope = make_rope_tables(cfg, device=self.device)
+        ecfg = self.engine_cfg
+        self._options = dict(top_k=ecfg.sample_top_k, approx=ecfg.approx_top_k,
+                             fast_kernel=ecfg.fast_kernel)
+        window = ecfg.rep_penalty_window
+        kernels_on = decode_mod.route(cfg, params, 1, window)
+        chosen = decode_mod.route(cfg, params, 1, window, **self._options)
+        off = [name for name in ("slow_stack", "sampler", "fast")
+               if getattr(kernels_on, name) and not getattr(chosen, name)]
+        if off:
+            logger.info("sample_top_k=%d, fast_kernel=%s turn off the %s kernel(s): those "
+                        "parts run on plain PyTorch", ecfg.sample_top_k, ecfg.fast_kernel,
+                        ", ".join(off))
         self._seeds = np.random.default_rng(seed)
         self.metrics = Metrics()
         self._states: dict[tuple, decode_mod.State] = {}
@@ -140,16 +155,18 @@ class GenerationEngine:
         if self.device.type != "cuda":
             _, frames, emitted = decode_mod.decode_chunk(
                 self.params, self.rope, state, noise, *sampling, cfg=self.cfg, ids=self.ids,
-                num_frames=num_frames, kv_bucket=kv_bucket, early_exit=early_exit)
+                num_frames=num_frames, kv_bucket=kv_bucket, early_exit=early_exit,
+                **self._options)
             return frames, emitted
-        B = state["frame"].shape[0]
-        key = (B, state["kv"]["k"].shape[3], kv_bucket, state["prev"].shape[2],
-               state["kv"]["k"].dtype, B > 1 or early_exit)
+        B, W = state["frame"].shape[0], state["prev"].shape[2]
+        skip_done = B > 1 or early_exit
+        key = (B, state["kv"]["k"].shape[3], kv_bucket, W, state["kv"]["k"].dtype, skip_done,
+               decode_mod.route(self.cfg, self.params, B, W, **self._options))
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = decode_mod.DecodeGraph(
                 self.params, self.cfg, self.ids, self.rope, state, kv_bucket=kv_bucket,
-                skip_done=key[-1], capacity=self._large_chunk)
+                skip_done=skip_done, capacity=self._large_chunk, **self._options)
         return graph.run(num_frames)
 
     def _pad_prompt(self, values: np.ndarray) -> tuple[np.ndarray, int]:
@@ -218,7 +235,7 @@ class GenerationEngine:
         _, first = decode_mod.prefill(
             self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
             torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
-            cfg=cfg, ids=ids, kv_bucket=0)
+            cfg=cfg, ids=ids, kv_bucket=0, **self._options)
         frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
                                                       device=self.device)
         if n0:

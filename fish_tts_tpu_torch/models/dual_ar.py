@@ -18,10 +18,10 @@ import numpy as np
 import torch
 
 from fish_tts_tpu_torch.config import DualARConfig
-from fish_tts_tpu_torch.ops.attention import gqa_attention, gqa_attention_two_part
+from fish_tts_tpu_torch.ops.attention import NEG_INF, gqa_attention, gqa_attention_two_part
 from fish_tts_tpu_torch.ops.norms import rms_norm
 from fish_tts_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
-from fish_tts_tpu_torch.utils.quantize import qgather, qhead, qmm
+from fish_tts_tpu_torch.utils.quantize import is_quantized, qgather, qhead, qmm
 
 Params = dict[str, Any]
 
@@ -59,8 +59,13 @@ def _init_block_stack(gen, cfg: DualARConfig, n_layers: int, dtype) -> Params:
         "attention_norm": torch.ones((n_layers, cfg.dim), dtype=dtype, device=dev),
         "ffn_norm": torch.ones((n_layers, cfg.dim), dtype=dtype, device=dev),
     }
-    if cfg.attention_qkv_bias or cfg.attention_o_bias or cfg.attention_qk_norm:
-        raise NotImplementedError("qkv/o biases and qk-norm are not ported yet")
+    if cfg.attention_qkv_bias:
+        p["wqkv_b"] = torch.zeros((n_layers, qkv_out), dtype=dtype, device=dev)
+    if cfg.attention_o_bias:
+        p["wo_b"] = torch.zeros((n_layers, cfg.dim), dtype=dtype, device=dev)
+    if cfg.attention_qk_norm:
+        p["q_norm"] = torch.ones((n_layers, cfg.head_dim), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((n_layers, cfg.head_dim), dtype=dtype, device=dev)
     return p
 
 
@@ -114,11 +119,38 @@ def init_kv_cache(cfg: DualARConfig, batch: int, max_seq_len: int | None = None,
 # ---------------------------------------------------------------------------
 
 
+def _fast_cache(cfg: DualARConfig, batch: int, dtype, device) -> Params:
+    shape = (cfg.n_fast_layer, batch, cfg.fast_n_local_heads, cfg.num_codebooks,
+             cfg.fast_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def _layer(stack: Params, i: int) -> Params:
     out = {}
     for k, v in stack.items():
         out[k] = {"q": v["q"][i], "s": v["s"][i]} if isinstance(v, dict) else v[i]
     return out
+
+
+def _attn_qkv(lp: Params, h: torch.Tensor, cfg: DualARConfig, freqs):
+    """Project (plus the qkv bias), split, qk-norm, rope.  h (B, T, D) ->
+    q, k, v (B, H, T, Dh)."""
+    B, T, _ = h.shape
+    qkv = qmm(h, lp["wqkv"])
+    if "wqkv_b" in lp:
+        qkv = qkv + lp["wqkv_b"]
+    q_size = cfg.n_head * cfg.head_dim
+    kv_size = cfg.n_local_heads * cfg.head_dim
+    q, k, v = torch.split(qkv, [q_size, kv_size, kv_size], dim=-1)
+    q = q.reshape(B, T, cfg.n_head, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_local_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_local_heads, cfg.head_dim)
+    if "q_norm" in lp:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q, k = apply_rotary_emb(q, freqs), apply_rotary_emb(k, freqs)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
 def _block_body(lp, x, cfg: DualARConfig, freqs, block_bias, k_cache, v_cache, cache_bias):
@@ -127,20 +159,17 @@ def _block_body(lp, x, cfg: DualARConfig, freqs, block_bias, k_cache, v_cache, c
     Returns (x, new_k (B, Hkv, T, Dh), new_v)."""
     B, T, _ = x.shape
     h = rms_norm(x, lp["attention_norm"], cfg.norm_eps)
-    qkv = qmm(h, lp["wqkv"])
+    q, k, v = _attn_qkv(lp, h, cfg, freqs)
     q_size = cfg.n_head * cfg.head_dim
-    kv_size = cfg.n_local_heads * cfg.head_dim
-    q, k, v = torch.split(qkv, [q_size, kv_size, kv_size], dim=-1)
-    q = apply_rotary_emb(q.reshape(B, T, cfg.n_head, cfg.head_dim), freqs)
-    k = apply_rotary_emb(k.reshape(B, T, cfg.n_local_heads, cfg.head_dim), freqs)
-    v = v.reshape(B, T, cfg.n_local_heads, cfg.head_dim)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if k_cache is not None:
         attn = gqa_attention_two_part(q, k_cache, v_cache, cache_bias, k, v, block_bias)
     else:
         attn = gqa_attention(q, k, v, block_bias)
     attn = attn.transpose(1, 2).reshape(B, T, q_size)
-    x = x + qmm(attn, lp["wo"])
+    o = qmm(attn, lp["wo"])
+    if "wo_b" in lp:
+        o = o + lp["wo_b"]
+    x = x + o
     f = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     gate = qmm(f, lp["w1"])
     x = x + qmm(gate * torch.sigmoid(gate) * qmm(f, lp["w3"]), lp["w2"])
@@ -149,12 +178,14 @@ def _block_body(lp, x, cfg: DualARConfig, freqs, block_bias, k_cache, v_cache, c
 
 def transformer_stack(stack_params: Params, x, cfg: DualARConfig, freqs, bias,
                       kv_cache: Params, positions, cache_bias=None,
-                      read_len: int | None = None):
+                      read_len: int | None = None, skip: torch.Tensor | None = None):
     """All layers over a T-token block, writing the block's K/V rows into
     ``kv_cache`` in place at ``positions`` (B, T).
 
     ``read_len`` bounds the cache rows attention reads (0: none — a fresh
-    prefill); ``cache_bias`` then has key width ``read_len``.  Returns x.
+    prefill); ``cache_bias`` then has key width ``read_len``.  With a set
+    ``skip`` flag (0-dim bool) the rows written are the ones already there,
+    so the cache stays as it was.  Returns x.
     """
     n_layers = stack_params["attention_norm"].shape[0]
     kc_all, vc_all = kv_cache["k"], kv_cache["v"]
@@ -169,8 +200,11 @@ def transformer_stack(stack_params: Params, x, cfg: DualARConfig, freqs, bias,
             kc, vc = kc_all[i, :, :, :R], vc_all[i, :, :, :R]
         x, new_k, new_v = _block_body(lp, x, cfg, freqs, bias, kc, vc, cache_bias)
         # (B, Hkv, T, Dh) rows -> cache[i, b, :, pos[b, t]]
-        kc_all[i][b_idx, :, pos] = new_k.transpose(1, 2).to(kc_all.dtype)
-        vc_all[i][b_idx, :, pos] = new_v.transpose(1, 2).to(vc_all.dtype)
+        for cache, new in ((kc_all[i], new_k), (vc_all[i], new_v)):
+            rows = new.transpose(1, 2).to(cache.dtype)
+            if skip is not None:
+                rows = torch.where(skip, cache[b_idx, :, pos], rows)
+            cache[b_idx, :, pos] = rows
     return x
 
 
@@ -192,17 +226,19 @@ def embed_inputs(params: Params, cfg: DualARConfig, ids: TokenIds, inp: torch.Te
 
 
 def slow_forward(params, cfg, ids, rope, inp, positions, kv_cache, cache_bias,
-                 block_bias, read_len=None):
-    """Slow-transformer forward over a block, writing into the KV cache.
-    Returns hidden (B, T, D) before the final norm."""
+                 block_bias, read_len=None, skip=None):
+    """Slow-transformer forward over a block, writing into the KV cache
+    (unless ``skip`` is set).  Returns hidden (B, T, D) before the final
+    norm."""
     x = embed_inputs(params, cfg, ids, inp)
     freqs = rope["slow"][positions.long()]
     return transformer_stack(params["layers"], x, cfg, freqs, block_bias, kv_cache,
-                             positions, cache_bias=cache_bias, read_len=read_len)
+                             positions, cache_bias=cache_bias, read_len=read_len, skip=skip)
 
 
 def lm_logits(params: Params, cfg: DualARConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Final norm + (tied) LM head."""
+    """Final norm + LM head: the tied embedding table, or the untied
+    ``output`` weight."""
     h = rms_norm(hidden, params["norm"], cfg.norm_eps)
     if cfg.tie_word_embeddings:
         return qhead(h, params["embeddings"])
@@ -215,3 +251,44 @@ def project_fast_in(params: Params, hidden: torch.Tensor) -> torch.Tensor:
         p = params["fast_project_in"]
         return hidden @ p["w"].transpose(0, 1) + p["b"]
     return hidden
+
+
+def fast_step(params: Params, cfg: DualARConfig, rope: Params, x: torch.Tensor, pos: int,
+              fast_cache: Params) -> torch.Tensor:
+    """One fast-transformer step at codebook position ``pos``: x (B, 1, Df)
+    is that position's input; writes its K/V row into ``fast_cache`` in
+    place.  Returns the codebook logits (B, 1, C)."""
+    B = x.shape[0]
+    dev = x.device
+    freqs = rope["fast"][pos:pos + 1]  # (1, Dh/2, 2)
+    # the cache holds positions < pos; the current one is the block's self-key
+    k_pos = torch.arange(cfg.num_codebooks, device=dev)
+    zero = torch.zeros((), device=dev)
+    cache_bias = torch.where(k_pos < pos, zero, NEG_INF).expand(B, 1, 1, cfg.num_codebooks)
+    block_bias = torch.zeros((1, 1, 1, 1), device=dev)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+    x = transformer_stack(params["fast_layers"], x, cfg.fast_config, freqs, block_bias,
+                          fast_cache, positions, cache_bias=cache_bias)
+    h = rms_norm(x, params["fast_norm"], cfg.norm_eps)
+    return qmm(h, params["fast_output"])
+
+
+def new_fast_cache(params: Params, cfg: DualARConfig, batch: int) -> Params:
+    """A fresh per-frame fast KV cache in the parameters' dtype and device."""
+    norm = params["norm"]
+    return _fast_cache(cfg, batch, norm.dtype, norm.device)
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Cast floating leaves to ``dtype``, leaving quantized ``{"q", "s"}``
+    weights alone: their f32 scales must not be rounded."""
+    def walk(p):
+        if is_quantized(p):
+            return p
+        if isinstance(p, dict):
+            return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v) for v in p)
+        return p.to(dtype) if p.is_floating_point() else p
+
+    return {k: walk(v) for k, v in params.items()}

@@ -23,6 +23,11 @@ The weights are checked and converted once per parameter set, and the
 kernel's scratch is allocated once per shape.  Both take an optional
 ``skip`` flag, a 0-dim bool tensor on the device: when it is set the kernel
 returns at once and the outputs are zeros in both versions.
+
+``supports`` is the engine's gate.  Unlike the JAX kernel's gate, which
+never asks, it refuses a fast stack with attention biases or qk-norm: the
+kernel applies neither, so such a config runs the plain loop over
+``dual_ar.fast_step``, the reference's correct route.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from fish_tts_tpu_torch.config import DualARConfig
 from fish_tts_tpu_torch.ops import kernels
 from fish_tts_tpu_torch.ops.slow_stack import block_plain, layer, qdot, rms
+from fish_tts_tpu_torch.utils.quantize import is_quantized
 
 Params = dict[str, Any]
 
@@ -49,6 +55,31 @@ launches = 0  # kernel launches, for showing that a run went through it
 # the kernel writes the global timer (ns) at its start and at its arrival at
 # and departure from every grid-wide barrier, in order.
 phase_clock: torch.Tensor | None = None
+
+
+_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
+
+
+def supports(cfg: DualARConfig, params: Params, batch: int, window: int) -> bool:
+    """Whether the kernel takes this config, parameter set, batch and penalty
+    window: int8 fast layers, embeddings and head, no attention biases or
+    qk-norm in the fast stack, widths within the kernel's limits."""
+    fl = params.get("fast_layers", {})
+    return (
+        1 <= batch <= MAX_BATCH
+        and 1 <= window <= MAX_WINDOW
+        and all(is_quantized(fl.get(k)) for k in _MATRICES)
+        and is_quantized(params.get("fast_embeddings"))
+        and is_quantized(params.get("fast_output"))
+        and not (cfg.fast_attention_qkv_bias or cfg.fast_attention_o_bias
+                 or cfg.fast_attention_qk_norm)
+        and kernels.block_dims_error(cfg.fast_dim, cfg.fast_n_head, cfg.fast_n_local_heads,
+                                     cfg.fast_head_dim, cfg.fast_intermediate_size) is None
+        and cfg.fast_head_dim <= MAX_HEAD_DIM
+        and 2 <= cfg.num_codebooks <= MAX_POS
+        and params["fast_output"]["q"].shape[0] >= cfg.residual_codebook_size
+        and params["norm"].dtype in (torch.float32, torch.bfloat16)
+    )
 
 
 def column(x, batch: int, device) -> torch.Tensor:
@@ -122,8 +153,6 @@ def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast
         return codes, logits
     return torch.where(skip, 0, codes), torch.where(skip, 0.0, logits)
 
-
-_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 
 # The weights of the last parameter set the kernel saw, checked and in the
 # kernel's types: (id(params), cfg, the tensors they came from, prepared).
@@ -205,6 +234,9 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     On CUDA tensors this is one cooperative launch of every block the card
     holds; it raises if the card (or an MPS limit) refuses such a launch.
     """
+    if cfg.fast_attention_qkv_bias or cfg.fast_attention_o_bias or cfg.fast_attention_qk_norm:
+        raise ValueError("fast_decode_frame: the kernel and its plain version have no "
+                         "attention biases or qk-norm")
     if h_fast.device.type == "cpu":
         return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
                                        gumbel, temperature, top_p, repetition_penalty,

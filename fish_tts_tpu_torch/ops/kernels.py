@@ -151,13 +151,22 @@ MAX_HEAD_DIM = 128  # csrc/common.cuh kMaxHeadDim
 MAX_GROUP = 8       # csrc/common.cuh kMaxGroup: query heads per KV head
 
 
+def block_dims_error(dim: int, n_head: int, n_kv: int, head_dim: int,
+                     inter: int) -> str | None:
+    """Why the transformer widths do not fit the GEMV and attention kernels
+    (16-byte weight rows and the head limits of ``common.cuh``), or None."""
+    if any(n % 16 for n in (dim, n_head * head_dim, inter)):
+        return ("dim, n_head * head_dim and intermediate size must be multiples of 16 "
+                "(the GEMV loads 16 int8 weights at a time)")
+    if head_dim % 2 or head_dim > MAX_HEAD_DIM or n_head % n_kv or n_head // n_kv > MAX_GROUP:
+        return (f"head_dim {head_dim} (even, <= {MAX_HEAD_DIM}) or {n_head}/{n_kv} heads "
+                f"(<= {MAX_GROUP} per KV head) not supported")
+    return None
+
+
 def check_block_dims(name: str, dim: int, n_head: int, n_kv: int, head_dim: int,
                      inter: int) -> None:
-    """Raise unless the transformer widths fit the GEMV and attention
-    kernels: 16-byte weight rows and the head limits of ``common.cuh``."""
-    if any(n % 16 for n in (dim, n_head * head_dim, inter)):
-        raise ValueError(f"{name}: dim, n_head * head_dim and intermediate size must be "
-                         "multiples of 16 (the GEMV loads 16 int8 weights at a time)")
-    if head_dim % 2 or head_dim > MAX_HEAD_DIM or n_head % n_kv or n_head // n_kv > MAX_GROUP:
-        raise ValueError(f"{name}: head_dim {head_dim} (even, <= {MAX_HEAD_DIM}) or "
-                         f"{n_head}/{n_kv} heads (<= {MAX_GROUP} per KV head) not supported")
+    """Raise where :func:`block_dims_error` finds a fault."""
+    err = block_dims_error(dim, n_head, n_kv, head_dim, inter)
+    if err is not None:
+        raise ValueError(f"{name}: {err}")

@@ -12,6 +12,10 @@ argmax of that plus the Gumbel noise, which the caller draws.
 tensors and runs ``sample_slow_plain`` for CPU tensors only.  Both take an
 optional ``skip`` flag, a 0-dim bool tensor on the device: when it is set
 the kernel returns at once and the tokens are zeros in both versions.
+
+``supports`` is the engine's gate, the JAX kernel's own: the kernel is the
+sort-free threshold sampler (``top_k == -1``) for B <= 16; other sampler
+modes run ``engine/sampling.sample``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,11 @@ round_counter: torch.Tensor | None = None
 # after the compaction, after the last bisection level and at its end (a
 # part that does not run repeats the stamp before it).
 phase_clock: torch.Tensor | None = None
+
+
+def supports(batch: int, top_k: int) -> bool:
+    """Whether the kernel serves this batch and sampler mode."""
+    return 1 <= batch <= MAX_BATCH and top_k == -1
 
 
 def sample_slow_plain(logits, prev_col, gumbel, temperature, top_p, repetition_penalty,

@@ -1,12 +1,15 @@
 """Slow-stack decode step: the one-token forward of the slow transformer
-plus the tied int8 LM head (kernel 2).
+plus, for a tied head, the int8 LM head (kernel 2).
 
 Port of ``fish_tts_tpu/ops/slow_stack.py::slow_stack_step``.  For B <= 16
 streams at per-stream positions ``pos``, every layer runs RMSNorm, the
 int8 ``wqkv`` product, interleaved RoPE, GQA attention over the cache rows
 ``r < min(pos, read_len)`` jointly with the token's own key, the int8
-``wo`` product and residual, RMSNorm and the int8 SwiGLU FFN.  Then the
-final norm and the tied int8 head give (B, V) logits.
+``wo`` product and residual, RMSNorm and the int8 SwiGLU FFN.  Then, when
+the config ties the head to the embeddings, the final norm and the tied
+int8 head give (B, V) logits; with an untied head there is no head phase
+and the logits are None (the caller applies ``dual_ar.lm_logits`` to the
+hidden state), as in the JAX kernel without a prepared head.
 
 Numerics are the Pallas kernel's, not the XLA path's: every int8 product
 rounds its activation to bf16 and accumulates in f32 before the
@@ -21,6 +24,10 @@ runs ``slow_stack_step_plain`` for CPU tensors only.  The weights are
 checked and converted once per parameter set.  Both take an optional
 ``skip`` flag, a 0-dim bool tensor on the device: when it is set the kernel
 returns at once and every output is zeros in both versions.
+
+``supports`` is the engine's gate: the configs, parameters and batches the
+kernel takes.  A config it refuses (float weights, attention biases or
+qk-norm, B above 16) runs ``dual_ar.slow_forward`` instead.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from fish_tts_tpu_torch.config import DualARConfig
 from fish_tts_tpu_torch.ops import kernels
+from fish_tts_tpu_torch.utils.quantize import is_quantized
 
 Params = dict[str, Any]
 
@@ -46,6 +54,34 @@ launches = 0  # kernel launches, for showing that a run went through it
 # the kernel writes the global timer (ns) at its start and at its arrival at
 # and departure from every grid-wide barrier, in order.
 phase_clock: torch.Tensor | None = None
+
+
+_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
+_CACHE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _cache_row_ok(head_dim: int, dtype: torch.dtype) -> bool:
+    """A cache row is read 16 bytes a lane, a power of two of lanes per row."""
+    row_bytes = head_dim * (torch.finfo(dtype).bits // 8)
+    return row_bytes % 16 == 0 and 32 % (row_bytes // 16) == 0
+
+
+def supports(cfg: DualARConfig, params: Params, batch: int) -> bool:
+    """Whether the kernel takes this config, parameter set and batch: int8
+    layer matrices (and a quantized embedding table for a tied head), no
+    attention biases or qk-norm, widths within the kernel's limits and a
+    cache (the parameters' dtype) it reads."""
+    layers = params.get("layers", {})
+    return (
+        1 <= batch <= MAX_BATCH
+        and all(is_quantized(layers.get(k)) for k in _MATRICES)
+        and (not cfg.tie_word_embeddings or is_quantized(params.get("embeddings")))
+        and not (cfg.attention_qkv_bias or cfg.attention_o_bias or cfg.attention_qk_norm)
+        and kernels.block_dims_error(cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim,
+                                     cfg.intermediate_size) is None
+        and params["norm"].dtype in _CACHE_DTYPES
+        and _cache_row_ok(cfg.head_dim, params["norm"].dtype)
+    )
 
 
 def qdot(x: torch.Tensor, w: Params) -> torch.Tensor:
@@ -114,7 +150,8 @@ def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_c
 def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
                           x: torch.Tensor, kv_cache: Params, pos: torch.Tensor, *,
                           read_len: int, skip: torch.Tensor | None = None):
-    """Plain PyTorch version of :func:`slow_stack_step`."""
+    """Plain PyTorch version of :func:`slow_stack_step` (logits None for an
+    untied head)."""
     B = x.shape[0]
     L = cfg.n_layer
     layers = params["layers"]
@@ -130,58 +167,63 @@ def slow_stack_step_plain(params: Params, cfg: DualARConfig, rope_slow: torch.Te
             eps=cfg.norm_eps)
         new_k.append(k[:, :, None])
         new_v.append(v[:, :, None])
-    logits = qdot(rms(h, params["norm"], cfg.norm_eps), params["embeddings"])
+    logits = None
+    if cfg.tie_word_embeddings:
+        logits = qdot(rms(h, params["norm"], cfg.norm_eps), params["embeddings"])
     out = (h[:, None], torch.stack(new_k), torch.stack(new_v), logits)
     if skip is None:
         return out
-    return tuple(torch.where(skip, 0.0, t) for t in out)
+    return tuple(None if t is None else torch.where(skip, 0.0, t) for t in out)
 
-
-_MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 
 # The weights of the last parameter set the kernel saw, checked and in the
-# kernel's types: (id(params), cfg, the tensors they came from, prepared).
+# kernel's types: (id(params), cfg, whether it has the head, the tensors
+# they came from, prepared).
 _prepared: tuple | None = None
 # One scratch buffer per (device, B, read_len, widths).
 _scratch: dict[tuple, torch.Tensor] = {}
 
 
-def _param_leaves(params: Params, rope_slow: torch.Tensor) -> tuple:
+def _param_leaves(params: Params, rope_slow: torch.Tensor, with_head: bool) -> tuple:
     lw = params["layers"]
-    return (rope_slow, lw["attention_norm"], lw["ffn_norm"], params["norm"],
-            *(lw[k][part] for k in _MATRICES for part in ("q", "s")),
-            params["embeddings"]["q"], params["embeddings"]["s"])
+    head = ((params["norm"], params["embeddings"]["q"], params["embeddings"]["s"])
+            if with_head else ())
+    return (rope_slow, lw["attention_norm"], lw["ffn_norm"],
+            *(lw[k][part] for k in _MATRICES for part in ("q", "s")), *head)
 
 
 def _prepare(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor) -> list:
-    """The weight pointers of the kernel call in their order, checked once per
-    parameter set: again only when ``params`` is another dict or holds
-    another tensor than at the last call."""
+    """The weight pointers of the kernel call in their order (the final norm
+    and the head None without a tied head), checked once per parameter set:
+    again only when ``params`` is another dict, the head changes, or it
+    holds another tensor than at the last call."""
     global _prepared
-    leaves = _param_leaves(params, rope_slow)
-    if (_prepared is not None and _prepared[0] == id(params) and _prepared[1] == cfg
-            and all(a is b for a, b in zip(_prepared[2], leaves))):
-        return _prepared[3]
+    with_head = cfg.tie_word_embeddings
+    leaves = _param_leaves(params, rope_slow, with_head)
+    if (_prepared is not None and _prepared[:3] == (id(params), cfg, with_head)
+            and len(_prepared[3]) == len(leaves)
+            and all(a is b for a, b in zip(_prepared[3], leaves))):
+        return _prepared[4]
     L, D, H, Hkv, Dh = cfg.n_layer, cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim
     I = cfg.intermediate_size
     q_size, kv_size = H * Dh, Hkv * Dh
-    if not cfg.tie_word_embeddings:
-        raise ValueError("slow_stack_step: the kernel needs the tied LM head")
     kernels.check_block_dims("slow_stack_step", D, H, Hkv, Dh, I)
     lw = params["layers"]
-    emb = params["embeddings"]
-    V = emb["q"].shape[0]
     attn_norm = lw["attention_norm"].float().contiguous()
     ffn_norm = lw["ffn_norm"].float().contiguous()
-    final_norm = params["norm"].float().contiguous()
     checks = [
         ("rope_slow", rope_slow, torch.bfloat16, (rope_slow.shape[0], Dh // 2, 2)),
         ("attention_norm", attn_norm, torch.float32, (L, D)),
         ("ffn_norm", ffn_norm, torch.float32, (L, D)),
-        ("norm", final_norm, torch.float32, (D,)),
-        ("embeddings.q", emb["q"], torch.int8, (V, D)),
-        ("embeddings.s", emb["s"], torch.float32, (V, 1)),
     ]
+    head: list = [None, None, None]
+    if with_head:
+        emb = params["embeddings"]
+        V = emb["q"].shape[0]
+        head = [params["norm"].float().contiguous(), emb["q"], emb["s"]]
+        checks += [("norm", head[0], torch.float32, (D,)),
+                   ("embeddings.q", emb["q"], torch.int8, (V, D)),
+                   ("embeddings.s", emb["s"], torch.float32, (V, 1))]
     shapes = {"wqkv": (q_size + 2 * kv_size, D), "wo": (D, q_size),
               "w1": (I, D), "w3": (I, D), "w2": (D, I)}
     for k, (n_out, n_in) in shapes.items():
@@ -192,9 +234,8 @@ def _prepare(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor) -> list
         if t.data_ptr() % 16:  # the kernel's bulk copies move 16-byte-aligned spans
             raise ValueError(f"slow_stack_step: {name} is not 16-byte aligned")
     weights = [rope_slow, attn_norm, ffn_norm,
-               *(lw[k][part] for k in _MATRICES for part in ("q", "s")),
-               final_norm, emb["q"], emb["s"]]
-    _prepared = (id(params), cfg, leaves, weights)
+               *(lw[k][part] for k in _MATRICES for part in ("q", "s")), *head]
+    _prepared = (id(params), cfg, with_head, leaves, weights)
     return weights
 
 
@@ -206,11 +247,14 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     x (B, D) embedded tokens; kv_cache {"k", "v"} (L, B, Hkv, S, Dh); pos
     (B,) int32; ``read_len`` bounds the cache rows read.  Returns (hidden
     (B, 1, D) f32 before the final norm, new_k (L, B, Hkv, 1, Dh) f32,
-    new_v, logits (B, V) f32).
+    new_v, logits (B, V) f32, or None for an untied head).
 
     On CUDA tensors this is one cooperative launch of every block the card
     holds; it raises if the card (or an MPS limit) refuses such a launch.
     """
+    if cfg.attention_qkv_bias or cfg.attention_o_bias or cfg.attention_qk_norm:
+        raise ValueError("slow_stack_step: the kernel and its plain version have no "
+                         "attention biases or qk-norm")
     if x.device.type == "cpu":
         return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
                                      read_len=read_len, skip=skip)
@@ -223,10 +267,9 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     weights = _prepare(params, cfg, rope_slow)
     kc, vc = kv_cache["k"], kv_cache["v"]
     S = kc.shape[3]
-    if kc.dtype not in (torch.bfloat16, torch.float32):
+    if kc.dtype not in _CACHE_DTYPES:
         raise ValueError(f"slow_stack_step: cache dtype {kc.dtype} not supported")
-    row_bytes = Dh * kc.element_size()  # a cache row is read 16 bytes a lane
-    if row_bytes % 16 or 32 % (row_bytes // 16):
+    if not _cache_row_ok(Dh, kc.dtype):
         raise ValueError(f"slow_stack_step: head_dim {Dh} must be a power of two, "
                          f"at least {16 // kc.element_size()}")
     if not 0 < read_len <= S:
@@ -246,7 +289,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
         kernels.require_cuda("skip", skip, torch.bool, ())
 
     dev = x.device
-    V = weights[-2].shape[0]
+    V = weights[-2].shape[0] if cfg.tie_word_embeddings else 0
     f32 = dict(dtype=torch.float32, device=dev)
     # the outputs are views of one allocation, each part 16-byte aligned; a
     # skipped call writes nothing, so with a flag they are allocated zeroed
@@ -256,7 +299,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     hidden = hidden.view(B, D)
     new_k = new_k.view(L, B, Hkv, 1, Dh)
     new_v = new_v.view(L, B, Hkv, 1, Dh)
-    logits = logits.view(B, V)
+    logits = logits.view(B, V) if V else None
     # one scratch buffer, carved by the kernel's entry: qkv, SwiGLU hidden,
     # attention output, the attention partials (max, denominator, weighted
     # sums per cache chunk) and the count of finished attention tasks per

@@ -2,10 +2,12 @@
 
 Port of the non-streaming surface of ``fish_tts_tpu/synthesizer.py``:
 ``FishTTS`` (from a native model directory or a testing bundle, precision
-``int8``; ``bf16``, ``fp16`` and ``fp32`` raise until the float decode loop
-is ported), ``synthesize`` with ``references=`` per call, the engine's
-``metrics`` and ``get_metrics()``, ``VoiceProfile`` and the
-``get_instance``/``reset_instance`` singleton.
+``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), ``synthesize`` with
+``references=`` per call, the engine's ``metrics`` and ``get_metrics()``,
+``VoiceProfile`` and the ``get_instance``/``reset_instance`` singleton.
+A float precision casts the LM and the codec to that dtype (the KV cache
+follows); ``int8`` keeps bf16 activations and codec with weight-only int8
+LM matmuls, the route of the three kernels.
 Entry points run on the card unless the caller asks for ``device="cpu"``;
 ``device="cuda"`` without a GPU raises.
 """
@@ -25,6 +27,7 @@ import torch
 from fish_tts_tpu_torch.config import DualARConfig, EngineConfig, VocoderConfig
 from fish_tts_tpu_torch.engine.generate import GenerationEngine
 from fish_tts_tpu_torch.models import vocoder
+from fish_tts_tpu_torch.models.dual_ar import cast_params
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.utils import checkpoint as ckpt
 from fish_tts_tpu_torch.utils.audio import to_wav_bytes
@@ -39,7 +42,9 @@ _instance_lock = threading.Lock()
 # Vocoder length buckets (frames); beyond the list they keep doubling.
 _VOCODER_BUCKETS = (10, 20, 40, 80, 160, 320, 640, 1280, 2048)
 
-PRECISIONS = ("int8", "bf16", "fp16", "fp32")
+PRECISIONS = ("bf16", "fp16", "fp32", "int8")
+_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
+           "int8": torch.bfloat16}
 
 
 def _vocoder_bucket(n: int) -> int:
@@ -91,16 +96,11 @@ class FishTTS:
     """
 
     def __init__(self, model_dir: str | Path | None = None, device: str = "cuda",
-                 precision: Literal["int8", "bf16", "fp16", "fp32"] = "int8",
+                 precision: Literal["bf16", "fp16", "fp32", "int8"] = "bf16",
                  warmup: bool = True, *, engine_config: EngineConfig | None = None,
                  seed: int = 0, _testing_bundle=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
-        if precision != "int8":
-            # the decode engine has only the kernel path, which takes int8
-            # weights; the float decode loop is not ported yet (ROADMAP.md §1.3)
-            raise NotImplementedError(
-                f"precision={precision!r}: the PyTorch port decodes only int8 so far")
         self.device = resolve_device(device)
         self._precision = precision
         if _testing_bundle is not None:
@@ -111,13 +111,16 @@ class FishTTS:
                 raise ValueError("model_dir is required (the port downloads nothing)")
             (self._cfg, params, self._tokenizer,
              self._vocoder_cfg, self._vocoder_params) = self._load_models(Path(model_dir))
-        self._cfg.check_ported()
 
-        # int8: bf16 activations and codec, weight-only int8 LM matmuls
-        params = quantize_lm_params(ckpt.to_device(params, self.device, torch.bfloat16))
+        # int8: bf16 activations and codec, weight-only int8 LM matmuls;
+        # otherwise the LM, its cache and the codec in the precision's dtype
+        dtype = _DTYPES[precision]
+        params = ckpt.to_device(cast_params(params, dtype), self.device)
+        if precision == "int8":
+            params = quantize_lm_params(params)
         if self._vocoder_params is not None:
-            self._vocoder_params = ckpt.to_device(self._vocoder_params, self.device,
-                                                  torch.bfloat16)
+            self._vocoder_params = ckpt.to_device(cast_params(self._vocoder_params, dtype),
+                                                  self.device)
         self._engine = GenerationEngine(params, self._cfg, self._tokenizer,
                                         engine_cfg=engine_config, seed=seed)
         # RTF and audio seconds follow the loaded codec's frame rate
@@ -223,7 +226,7 @@ class FishTTS:
 
 
 def get_instance(model_dir: str | Path | None = None, device: str = "cuda",
-                 precision: Literal["int8", "bf16", "fp16", "fp32"] = "int8",
+                 precision: Literal["bf16", "fp16", "fp32", "int8"] = "bf16",
                  warmup: bool = True, engine_config: EngineConfig | None = None) -> FishTTS:
     """Get or create the process-wide FishTTS instance."""
     global _instance

@@ -8,6 +8,9 @@
 - ``fast_decision_margins``: the fast decoder's codes against its plain
   version's, excusing a differing code only at a knife edge.
 - ``slow_decision_margins``: the same for the slow-token sampler's tokens.
+- ``sample_decision_margins``: the same for any sampler mode of
+  ``engine/sampling`` (threshold, full sort, top-k), against logits that
+  may each move by a tolerance.
 
 Both write their ``.tiktoken`` vocabulary into a fresh temporary directory.
 """
@@ -26,6 +29,7 @@ from fish_tts_tpu_torch.config import (
     TINY_VOCODER_CONFIG,
     VocoderConfig,
 )
+from fish_tts_tpu_torch.engine.sampling import candidate_width
 from fish_tts_tpu_torch.models import dual_ar, vocoder
 from fish_tts_tpu_torch.models.tokenizer import (
     ALL_SPECIAL_TOKENS,
@@ -186,6 +190,54 @@ def slow_decision_margins(tokens, tokens_plain, logits, prev_col, gumbel, temper
         else:
             out["failures"].append(f"row {b}: token {got} != {want} with no knife edge in the "
                                    f"reference (closest mass {float(gap[b]):.3g} from top_p)")
+    return out
+
+
+def _sort_knife_edge(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float,
+                     top_p: float, top_k: int, i: int, k: int, tol: float) -> bool:
+    """``_knife_edge`` for the sort routes of ``engine/sampling``, whose noise
+    lane follows a candidate's rank: logits that may each move by ``tol``
+    can also swap the rank of lane ``i`` or ``k`` with a lane within 2 tol
+    of it, and so their noise."""
+    l = logits.double()
+    for lane in (i, k):
+        if int(((l - l[lane]).abs() <= 2 * tol).sum()) > 1:
+            return True
+    n = candidate_width(l.shape[0], top_k)
+    order = torch.sort(l, descending=True, stable=True).indices[:n]
+    per_lane = torch.full_like(l, float("-inf"))
+    per_lane[order] = gumbel[:n].double()  # lanes beyond the candidates cannot be picked
+    return _knife_edge(l, per_lane, temperature, top_p, i, k, tol)
+
+
+def sample_decision_margins(tokens, tokens_ref, logits, gumbel, temperature, top_p,
+                            top_k: int, tol: float) -> dict:
+    """Hold tokens against a reference's, both from ``engine/sampling``'s rule
+    for ``top_k`` (or the sampler kernel's, ``top_k = -1``), excusing a
+    differing token only at a knife edge of the reference's own numbers:
+    ``logits`` (B, V) penalized as the sampler saw them, ``gumbel`` (B, n)
+    as it read them (by lane for ``top_k = -1``, by rank otherwise), ``tol``
+    the absolute logit tolerance.  Returns {"knife_edges": n, "failures":
+    [messages], "compared": rows}."""
+    B = tokens_ref.shape[0]
+    temp = torch.as_tensor(temperature, dtype=torch.float32).reshape(-1).expand(B).tolist()
+    tp = torch.as_tensor(top_p, dtype=torch.float32).reshape(-1).expand(B).tolist()
+    logits, gumbel = logits.cpu().float(), gumbel.cpu().float()
+    out = {"knife_edges": 0, "failures": [], "compared": B}
+    for b in range(B):
+        got, want = int(tokens[b]), int(tokens_ref[b])
+        if got == want:
+            continue
+        if top_k == -1:
+            edge = _knife_edge(logits[b], gumbel[b, :logits.shape[1]], temp[b], tp[b], want,
+                               got, tol)
+        else:
+            edge = _sort_knife_edge(logits[b], gumbel[b], temp[b], tp[b], top_k, want, got, tol)
+        if edge:
+            out["knife_edges"] += 1
+        else:
+            out["failures"].append(f"row {b}: token {got} != {want} with no knife edge in the "
+                                   f"reference (top_k {top_k}, tol {tol:.3g})")
     return out
 
 

@@ -10,9 +10,10 @@
   (numpy arrays or tensors, e.g. from ``load_params`` or
   ``fish_tts_tpu.utils.checkpoint.flatten_params``) into the port's: for a
   DualAR LM tree every linear weight is transposed from ``(in, out)`` to
-  ``(out, in)``; codec trees keep their layout.  An LM tree with attention
-  biases or qk-norm weights raises ``NotImplementedError``: the port's
-  stack and kernels do not apply them yet.
+  ``(out, in)``; the attention biases (``wqkv_b`` (L, qkv), ``wo_b``
+  (L, D)) and qk-norm gains (``q_norm``/``k_norm`` (L, Dh)) keep their
+  layout, which is the one ``models/dual_ar.py`` reads; codec trees keep
+  their layout.
 """
 
 from __future__ import annotations
@@ -109,8 +110,6 @@ def _tree_map(fn, tree):
 
 # LM weights stored (in, out) by the JAX package; the port keeps (out, in).
 _STACK_LINEAR = ("wqkv", "wo", "w1", "w3", "w2")
-# Per-layer weights of paths the port does not have (ROADMAP.md §1.3).
-_UNPORTED_LAYER_WEIGHTS = ("wqkv_b", "wo_b", "q_norm", "k_norm")
 
 
 def _transpose_linear(w):
@@ -129,11 +128,6 @@ def from_jax_params(tree: Params, device: str | torch.device = "cpu") -> Params:
         tree = dict(tree)
         for stack in ("layers", "fast_layers"):
             st = dict(tree[stack])
-            found = [k for k in _UNPORTED_LAYER_WEIGHTS if k in st]
-            if found:
-                raise NotImplementedError(
-                    f"{stack}: {', '.join(found)}: attention biases and qk-norm are not "
-                    "ported yet (ROADMAP.md §1.3)")
             for k in _STACK_LINEAR:
                 st[k] = _transpose_linear(st[k])
             tree[stack] = st

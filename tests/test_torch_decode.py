@@ -56,7 +56,8 @@ def replay_noise(key):
         return (jax.random.gumbel(ks, (V,), jnp.float32),
                 jax.random.gumbel(kf, (K - 1, Vr), jnp.float32))
 
-    def noise(slot, step):
+    def noise(slot, step, draws):
+        assert draws == tdecode.Draws(V, Vr, per_book=False)  # the kernel route's
         g_slow, g_fast = draw(jnp.uint32(slot), jnp.uint32(step))
         return torch.from_numpy(np.array(g_slow)), torch.from_numpy(np.array(g_fast))
 
@@ -213,12 +214,29 @@ def test_default_noise_is_standard_gumbel():
     assert abs(g.var().item() - var) < 5 * math.sqrt((27 / 5 - 1) * var ** 2 / n)
 
 
+# The routes a frame can take: int8 on the three kernels, bf16 (plain slow
+# stack and residual books, the sampler kernel) and top_k > 0 (the plain
+# samplers' sort).
+ROUTES = {"int8": ({}, dict(top_k=-1)), "bf16": (dict(precision="bf16"), dict(top_k=-1)),
+          "top_k=8": ({}, dict(top_k=8))}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("skip_done", [False, True])
-def test_one_frame_reads_nothing_back(setup, monkeypatch, skip_done):
+def test_one_frame_reads_nothing_back(setup, monkeypatch, skip_done, route):
     """The frame the graph captures, with the default noise, at B = 2: no
     tensor is turned into a host value (a CUDA graph could not hold such a
     read).  Its state and ring stay tensors on the state's device."""
-    s = setup
+    s = dict(setup)
+    make, opts = ROUTES[route]
+    if make.get("precision") == "bf16":
+        s["tp"] = tdual.cast_params(tckpt.from_jax_params(jax.tree_util.tree_map(
+            np.asarray, jdual.init_params(jax.random.PRNGKey(0), CFG, jnp.float32))),
+            torch.bfloat16)
+    rt = tdecode.route(T_CFG, s["tp"], 2, tdecode.WINDOW, **opts)
+    assert (rt.slow_stack, rt.sampler, rt.fast) == {
+        "int8": (True, True, True), "bf16": (False, True, False),
+        "top_k=8": (True, False, False)}[route]
     state, _ = port_prefill(s, 2, s["ids"], tdecode.GumbelNoise(5, T_CFG))
     ring = tdecode._Ring(2, 3, 1 + T_CFG.num_codebooks, state["frame"].device)
     rope = tdual.make_rope_tables(T_CFG)
@@ -231,7 +249,7 @@ def test_one_frame_reads_nothing_back(setup, monkeypatch, skip_done):
     with torch.no_grad():
         for _ in range(2):
             tdecode.decode_frame(s["tp"], T_CFG, s["ids"], rope, state, None,
-                                 kv_bucket=KV_BUCKET, skip_done=skip_done, ring=ring)
+                                 kv_bucket=KV_BUCKET, skip_done=skip_done, ring=ring, **opts)
     monkeypatch.undo()
     assert ring.t.tolist() == [2]
     assert state["step"].tolist() == [2, 2] and state["step"].dtype == torch.int32
