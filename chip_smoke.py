@@ -73,6 +73,20 @@ printing its own lines; any failure raises and the script exits non-zero:
    int8 with qk-norm and qkv and o biases in both stacks, each with the
    launch counts of its route.
 
+7. stream (on the int8 instance of phase 5 and the bf16 one of phase 6):
+   ``set_references`` with the 661-frame profile: the prefix's length, the
+   time it took, its KV rows against a full-prompt prefill's (within
+   PREFIX_KV_TOL); ``synthesize(references=None)``, which must prefill the
+   text alone at the prefix's offset, beside ``references=[profile]``
+   (frames/s, launches, graph replays); then ``synthesize_stream`` through
+   the prefix and with the explicit reference, in both codec modes: chunks
+   of whole int16 frames, 10 then 20 then the rest; codes equal to the
+   non-streamed call's with the same seed plus its stripped final frame;
+   the stateful stream's PCM within STREAM_PCM_TOL int16 steps of the joint
+   decode of the same codes; the route's launches and every decode frame a
+   graph replay; time to first audio (median of STREAM_RUNS calls) and the
+   whole stream's frames/s; the codec's device time per 20-frame chunk.
+
 Then one JSON line of per-kernel records (main-path shapes, B = 1; the
 sampler on bf16-rounded logits) and, last,
 ``{"ok": true, "device": {...}}``; the head-less slow stack's launches are
@@ -115,6 +129,20 @@ GRAPH_FRAMES = 32  # frames of each decode-graph check
 # The decode-graph checks at S1-mini width: (label, B, streams already done).
 GRAPH_CASES = (("B=1", 1, ()), ("B=4", 4, (2, 3)))
 ROUTE_RUNS = 3  # synthesize calls per decode route (graph, eager) in turns
+STREAM_RUNS = 3  # timed synthesize_stream calls per case, after the checked one
+# The prefix's KV rows against a full-prompt prefill's: the same plain prefill
+# of the same tokens on both sides; where the two prompts pad to other
+# buckets the 28-layer stack sums in another order, as STACK_TOL allows.
+PREFIX_KV_TOL = 5e-2
+# The stateful stream's PCM against the joint decode of the same codes, in
+# int16 steps: the codec runs in bf16, and a 20-frame chunk and the joint
+# bucket take other cuDNN algorithms and round other sums.  The first card
+# run measured up to 408 steps (2.2% of a peak of 18 815; PERF.md, PR 8);
+# the bound leaves room for other random weights.  The stream must also be
+# as close to the float32 decode as the joint bf16 decode is, within
+# STREAM_FP32_RATIO of its error.
+STREAM_PCM_TOL = 1024
+STREAM_FP32_RATIO = 1.5
 FLOAT_PROFILE_TOKENS = 20  # frames of the profiled bf16 calls
 # The slow-stack checks: (label, B, cache rows, read_len, positions: a list,
 # or a [low, high) range drawn from the seed).
@@ -931,6 +959,7 @@ def phase_main(dev, profile_dir=None):
     if profile_dir is not None:
         profile_synthesize(tts, Path(profile_dir), seen["frames"])
         sampler_on_path(tts)
+    phase_stream(tts, seen, "int8")
     return launches
 
 
@@ -1059,21 +1088,50 @@ def sampler_on_path(tts) -> None:
           flush=True)
 
 
-def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
-    """One ``synthesize`` call with every kernel's launch count set to 0 just
-    before it; checks the WAV and the launches and prints frames/s and RTF.
-    Returns the launch counts."""
-    import numpy as np
-    import torch
-
+def zero_counts() -> None:
+    """Every kernel's launch count and both decode-route counters to 0."""
     from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
-    modules = {"sample_slow": sampler_kernel, "slow_stack_step": slow_stack,
-               "fast_decode_frame": fast_decoder}
-    for m in modules.values():
+    for m in (sampler_kernel, slow_stack, fast_decoder):
         m.launches = 0
     decode.graph_replays = decode.eager_frames = 0
+
+
+def route_counts(engine, label: str, min_replays: int):
+    """The launch counts since :func:`zero_counts`, which must be what the
+    call's route implies (``decode.route``: a kernel on it launches once per
+    frame, the sampler and the fast decoder also for the prefill frame, the
+    slow stack only in decode; a kernel off it not at all), with every
+    decode frame, at least ``min_replays``, replayed from a captured graph.
+    Returns (launches, replays, the route)."""
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
+
+    launches = {"sample_slow": sampler_kernel.launches, "slow_stack_step": slow_stack.launches,
+                "fast_decode_frame": fast_decoder.launches}
+    replays, eager = decode.graph_replays, decode.eager_frames
+    rt = decode.route(engine.cfg, engine.params, 1, engine.engine_cfg.rep_penalty_window,
+                      **engine._options)
+    decoded = replays + eager
+    want = {"sample_slow": rt.sampler * (1 + decoded),
+            "slow_stack_step": rt.slow_stack * decoded,
+            "fast_decode_frame": rt.fast * (1 + decoded)}
+    if launches != want or not any(want.values()):
+        fail(f"{label}: kernel launches {launches}, the route implies {want}")
+    if replays < min_replays or eager:
+        fail(f"{label}: {replays} graph replays and {eager} eager decode frames")
+    return launches, replays, rt
+
+
+def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
+    """One ``synthesize`` call with every kernel's launch count set to 0 just
+    before it; checks the WAV and the launches and prints frames/s and RTF
+    (also left in ``seen["fps"]``).  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    zero_counts()
     tts.metrics.reset()
     t = time.perf_counter()
     wav = tts.synthesize(TEXT, references=references, temperature=SAMPLING[0],
@@ -1081,20 +1139,10 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
                          max_tokens=MAX_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {name: m.launches for name, m in modules.items()}
-    replays, eager = decode.graph_replays, decode.eager_frames
-    # the route's kernels launch once per frame (the sampler and the fast
-    # decoder also for the prefill frame, the slow stack only in decode)
-    engine = tts.engine
-    rt = decode.route(engine.cfg, engine.params, 1, engine.engine_cfg.rep_penalty_window,
-                      **engine._options)
-    decoded = replays + eager
-    want = {"sample_slow": rt.sampler * (1 + decoded),
-            "slow_stack_step": rt.slow_stack * decoded,
-            "fast_decode_frame": rt.fast * (1 + decoded)}
-
     codes, audio = seen["codes"], seen["audio"]
     seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
+    launches, replays, rt = route_counts(tts.engine, f"main: {label}", frames - 2)
+
     hop = tts._vocoder_cfg.frame_length
     with wave.open(io.BytesIO(wav)) as w:
         header = (w.getnchannels(), w.getsampwidth(), w.getframerate())
@@ -1107,20 +1155,17 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
         fail(f"main: {label}: {n} samples for {frames} frames, want {(frames - 1) * hop}")
     if not np.isfinite(audio).all():
         fail(f"main: {label}: audio is not finite")
-    if launches != want or not any(want.values()):
-        fail(f"main: {label}: kernel launches {launches}, the route implies {want}")
-    if replays < frames - 2 or eager:
-        fail(f"main: {label}: {replays} graph replays and {eager} eager decode frames")
     audio_s = n / tts.sample_rate
+    seen["fps"] = frames / seen["gen_s"]
     print(f"main: {label} -> {len(wav)} WAV bytes, {frames} frames, {n} samples, "
           f"audio peak {float(np.abs(audio).max()):.4f}; {wall:.3f} s wall, "
-          f"generation {seen['gen_s']:.3f} s = {frames / seen['gen_s']:.1f} frames/s, "
+          f"generation {seen['gen_s']:.3f} s = {seen['fps']:.1f} frames/s, "
           f"RTF {wall / audio_s:.4f}", flush=True)
     on = [n for n, k in (("slow stack", rt.slow_stack), ("sampler", rt.sampler),
                          ("fast decoder", rt.fast)) if k]
     print(f"main: {label}: kernel launches {json.dumps(launches)}, as the route implies "
           f"(kernels: {', '.join(on)}); {replays} decode frames replayed from captured "
-          f"graphs, {eager} eager", flush=True)
+          f"graphs, 0 eager", flush=True)
     print(f"main: {label}: get_metrics() {json.dumps(tts.get_metrics())}", flush=True)
     return launches
 
@@ -1188,6 +1233,7 @@ def phase_float(dev, profile_dir=None) -> int:
     if profile_dir is not None:
         profile_synthesize(tts, Path(profile_dir), FLOAT_PROFILE_TOKENS + 1,
                            max_tokens=FLOAT_PROFILE_TOKENS, name="bf16_synthesize")
+    phase_stream(tts, seen, "bf16")
     del tts, seen, e
     torch.cuda.empty_cache()
 
@@ -1253,6 +1299,238 @@ def profile_synthesize(tts, out: Path, frames: int, max_tokens: int = MAX_TOKENS
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%)", flush=True)
     for ms, n, key in rows[:12]:
         print(f"profile {name}: {ms:9.3f} ms {n:6d} x {key[:110]}", flush=True)
+
+
+# --- phase 7: the stored reference and streaming ----------------------------------
+
+
+def prefix_against_full_prompt(tts, profile, n: int) -> float:
+    """The prefix state's KV rows [0, n) against the rows a prefill of the
+    whole prompt (the same reference, then TEXT) writes, the plain prefill
+    on both sides: the relative error to the largest magnitude."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models.prompt import build_prompt
+
+    engine, dev = tts.engine, tts.device
+    full = build_prompt(engine.tokenizer, TEXT, engine.cfg.num_codebooks,
+                        prompt_texts=[profile.text], prompt_codes=[np.asarray(profile.codes)])
+    padded, T = engine._pad_prompt(full.values)
+    state = decode.init_state(engine.params, engine.cfg, 1, window=WINDOW)
+    decode.prefill(engine.params, engine.rope, state, torch.as_tensor(padded, device=dev),
+                   torch.tensor([T], dtype=torch.int32, device=dev),
+                   decode.GumbelNoise(SEED, engine.cfg), *SAMPLING, cfg=engine.cfg,
+                   ids=engine.ids, kv_bucket=0, **engine._options)
+    prefix = engine._prefix_state["kv"]
+    err = max(rel_err(prefix[k][:, :, :, :n], state["kv"][k][:, :, :, :n])[1] for k in ("k", "v"))
+    del state
+    torch.cuda.empty_cache()
+    return err
+
+
+def stream_call(tts, references, mode: str) -> dict:
+    """One ``synthesize_stream(TEXT, max_tokens=MAX_TOKENS)`` with the engine
+    reseeded to SEED: its PCM chunks, the codes the engine streamed, the
+    wall time to the first chunk and to the last."""
+    import numpy as np
+
+    from fish_tts_tpu_torch.engine.generate import GenerationEngine
+
+    engine, codes, at = tts.engine, [], []
+    gen_long = GenerationEngine.generate_long.__get__(engine)  # without observe()'s wrapper
+
+    def recording(*a, **k):
+        for r in gen_long(*a, **k):
+            if r.action == "sample":
+                codes.append(r.codes)
+                at.append(time.perf_counter())
+            yield r
+
+    engine.reseed(SEED)
+    with mock.patch.object(engine, "generate_long", recording):
+        t = time.perf_counter()
+        chunks = tts.synthesize_stream(TEXT, references=references, temperature=SAMPLING[0],
+                                       top_p=SAMPLING[1], repetition_penalty=SAMPLING[2],
+                                       max_tokens=MAX_TOKENS, vocoder_mode=mode)
+        first = next(chunks)
+        ttfa = time.perf_counter() - t
+        chunks = [first, *chunks]
+        wall = time.perf_counter() - t
+    return {"chunks": chunks, "codes": np.concatenate(codes, axis=1), "ttfa": ttfa,
+            "first_codes": at[0] - t, "wall": wall,
+            "pcm": np.frombuffer(b"".join(chunks), np.int16).astype(np.int32)}
+
+
+def nonstreamed_codes(tts, references):
+    """The codes of the same call, not streamed, with the engine reseeded to
+    SEED (the final frame stripped)."""
+    from fish_tts_tpu_torch.engine.generate import GenerationEngine
+
+    prompt_text, prompt_tokens, use_prefix = tts._get_prompt_data(references)
+    tts.engine.reseed(SEED)
+    out = GenerationEngine.generate_long(
+        tts.engine, TEXT, max_new_tokens=MAX_TOKENS, temperature=SAMPLING[0],
+        top_p=SAMPLING[1], repetition_penalty=SAMPLING[2], prompt_text=prompt_text,
+        prompt_tokens=prompt_tokens, use_prefix_cache=use_prefix)
+    return next(out).codes
+
+
+def check_stream(tts, label: str, references, mode: str) -> dict:
+    """One checked ``synthesize_stream`` call (counts set to 0 just before
+    it), then STREAM_RUNS timed ones.  Checks chunks of whole frames of
+    int16 PCM, 10 frames then 20 then the rest, and the launches of the
+    route with every decode frame replayed from a graph.  Prints the time to
+    first audio (median), when the LM's first chunk reached the host, and
+    the whole stream's frames/s.  Returns the checked call's record."""
+    hop = tts._vocoder_cfg.frame_length
+    zero_counts()
+    r = stream_call(tts, references, mode)
+    n = r["codes"].shape[1]
+    launches, replays, _ = route_counts(tts.engine, f"stream: {label}", n - 1)
+    if any(len(c) % (2 * hop) for c in r["chunks"]):
+        fail(f"stream: {label}: a chunk of {[len(c) for c in r['chunks']]} bytes is not whole "
+             f"frames")
+    sizes = [len(c) // (2 * hop) for c in r["chunks"]]
+    want = [10] + [20] * ((n - 10) // 20) + ([(n - 10) % 20] if (n - 10) % 20 else [])
+    if sizes != want:
+        fail(f"stream: {label}: chunks of {sizes} frames for {n} frames, want {want}")
+    runs = [stream_call(tts, references, mode) for _ in range(STREAM_RUNS)]
+    ttfa = [x["ttfa"] * 1e3 for x in runs]
+    print(f"stream: {label}: {n} frames in chunks of {sizes} frames, {len(r['pcm'])} samples; "
+          f"kernel launches {json.dumps(launches)}, {replays} decode frames replayed from "
+          f"captured graphs, 0 eager", flush=True)
+    print(f"stream: {label}: time to first audio {statistics.median(ttfa):.1f} ms (median of "
+          f"{STREAM_RUNS} calls after the checked one: {[round(x, 1) for x in ttfa]}; the LM's "
+          f"first 10 frames on the host at {[round(x['first_codes'] * 1e3, 1) for x in runs]} "
+          f"ms); whole stream {[round(x['codes'].shape[1] / x['wall'], 1) for x in runs]} "
+          f"frames/s", flush=True)
+    return r
+
+
+def phase_stream(tts, seen, name: str) -> None:
+    """The stored reference and streaming on ``tts`` (``name`` its
+    precision): ``set_references`` with the 661-frame profile (the prefix's
+    length, the time it took, its KV rows against a full-prompt prefill);
+    ``synthesize(references=None)`` through the prefix (the prefill starts
+    at the prefix's offset with the text alone) against the same call with
+    ``references=[profile]``, each warmed once; then ``synthesize_stream``
+    through the prefix and with the explicit reference, each in both codec
+    modes (:func:`check_stream`), the streamed codes equal to the
+    non-streamed call's with the same seed, the stateful stream's PCM held
+    against the joint decode; the codec's device time per 20-frame chunk.
+    Clears the references at the end."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models import vocoder, vocoder_stream
+    from fish_tts_tpu_torch.models.dual_ar import cast_params
+    from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
+    from fish_tts_tpu_torch.utils.audio import to_pcm_bytes
+
+    profile = reference_profile(tts._cfg)
+    engine = tts.engine
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tts.set_references([profile])
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t) * 1e3
+    n_prefix = int(engine._prefix_state["pos"][0])
+    kv_rel = prefix_against_full_prompt(tts, profile, n_prefix)
+    if not kv_rel <= PREFIX_KV_TOL:
+        fail(f"stream {name}: the prefix's KV rows differ from a full-prompt prefill's by "
+             f"{kv_rel:.3g} > {PREFIX_KV_TOL}")
+    print(f"stream {name}: set_references with a {REF_FRAMES}-frame profile: prefix of "
+          f"{n_prefix} tokens prefilled in {set_ms:.1f} ms; its KV rows against a full-prompt "
+          f"prefill's: rel err {kv_rel:.2e} (tol {PREFIX_KV_TOL})", flush=True)
+
+    # synthesize through the prefix, and with the explicit reference
+    suffix = engine._encode_suffix(TEXT).values.shape[1]
+    prefills = []
+    real_prefill = decode.prefill
+
+    def spy(params, rope, state, prompt, lengths, *a, **k):
+        prefills.append((int(lengths[0]), int(state["pos"][0])))
+        return real_prefill(params, rope, state, prompt, lengths, *a, **k)
+
+    fps = {}
+    for label, refs in (("the stored reference (prefix)", None),
+                        ("references=[profile]", [profile])):
+        tts.synthesize(TEXT, references=refs, max_tokens=MAX_TOKENS)  # warm: graph captures
+        with mock.patch.object(decode, "prefill", spy):
+            synthesize_once(tts, seen, f"{name} synthesize with {label}", references=refs)
+        fps[label] = seen["fps"]
+    (len_p, off_p), (len_e, off_e) = prefills
+    if (len_p, off_p) != (suffix, n_prefix) or off_e != 0 or len_e <= n_prefix:
+        fail(f"stream {name}: prefills (length, offset) {prefills}: want ({suffix}, "
+             f"{n_prefix}) through the prefix and a full prompt from 0 with the reference")
+    print(f"stream {name}: synthesize(references=None) prefilled {len_p} tokens at offset "
+          f"{off_p} (the prefix), the explicit reference {len_e} from 0; frames/s "
+          f"{fps['the stored reference (prefix)']:.1f} with the prefix, "
+          f"{fps['references=[profile]']:.1f} with the explicit reference", flush=True)
+
+    vp, vcfg = tts._vocoder_params, tts._vocoder_cfg
+    vp32 = cast_params(vp, torch.float32)
+
+    def pcm(audio) -> np.ndarray:
+        return np.frombuffer(to_pcm_bytes(audio), np.int16).astype(np.int32)
+
+    for label, refs in (("prefix", None), ("explicit reference", [profile])):
+        batch = nonstreamed_codes(tts, refs)
+        r = stream_call(tts, refs, "stateful")  # warm: the streaming graphs' captures
+        codes = r["codes"]
+        if codes.shape[1] != batch.shape[1] + 1:
+            fail(f"stream {name} {label}: {codes.shape[1]} frames streamed, "
+                 f"{batch.shape[1]} + 1 not streamed")
+        differ = int((codes[:, :-1] != batch).sum())
+        if differ:
+            fail(f"stream {name} {label}: {differ} codes differ from the non-streamed call's")
+        s = check_stream(tts, f"{name} {label} stateful", refs, "stateful")
+        c = check_stream(tts, f"{name} {label} context", refs, "context")
+        for got in (s, c):
+            if not np.array_equal(got["codes"], codes):
+                fail(f"stream {name} {label}: the codes differ between calls with one seed")
+        # the codec's own spread: the joint decode in the precision's dtype and
+        # in float32, against which the stream must do as well as the joint
+        joint = pcm(tts._decode_codes(codes))
+        padded = np.zeros((1, codes.shape[0], _vocoder_bucket(codes.shape[1])), np.int64)
+        padded[0, :, :codes.shape[1]] = codes
+        ref32 = pcm(vocoder.dac_decode(vp32, vcfg, torch.as_tensor(padded, device=tts.device))[
+            0, 0, :len(joint)].cpu().numpy())
+        err = {k: int(np.abs(v - w).max()) for k, (v, w) in {
+            "stream-joint": (s["pcm"], joint), "stream-fp32": (s["pcm"], ref32),
+            "joint-fp32": (joint, ref32), "context-fp32": (c["pcm"], ref32)}.items()}
+        if (s["pcm"].shape != joint.shape or not err["stream-joint"] <= STREAM_PCM_TOL
+                or not err["stream-fp32"] <= STREAM_FP32_RATIO * err["joint-fp32"] + 1):
+            fail(f"stream {name} {label}: the stateful stream's PCM is off: {err} (int16 steps; "
+                 f"tol {STREAM_PCM_TOL} against the joint decode, {STREAM_FP32_RATIO}x the "
+                 f"joint decode's own error against the float32 decode)")
+        print(f"stream {name} {label}: streamed codes equal the non-streamed call's "
+              f"({batch.shape[1]} frames, 0 differing codes) plus its stripped final frame; "
+              f"PCM max errors in int16 steps (peak {int(np.abs(ref32).max())}): stateful "
+              f"stream against the joint decode {err['stream-joint']} (tol {STREAM_PCM_TOL}), "
+              f"against the float32 decode {err['stream-fp32']} (joint decode {err['joint-fp32']}"
+              f", tol {STREAM_FP32_RATIO}x), context mode {err['context-fp32']}", flush=True)
+    del vp32
+
+    # the codec per 20-frame chunk: CUDA events around one call, and the
+    # device's and the host's time with the host ahead of the device
+    codes = torch.as_tensor(codes[None], device=tts.device)
+    state = vocoder_stream.init_decode_state(vp, vcfg)
+    padded = torch.zeros((1, codes.shape[1], 80), dtype=codes.dtype, device=tts.device)
+    padded[:, :, :52] = codes[:, :, :52]
+    calls = {"stateful": lambda: vocoder_stream.decode_chunk(vp, vcfg, state, codes[:, :, :20]),
+             "context (20 + 32 frames of context, the 80-frame bucket)":
+                 lambda: vocoder.dac_decode(vp, vcfg, padded)}
+    for mode, fn in calls.items():
+        ms = time_ms(fn, 10)
+        dev_us, host_us = device_and_host_us(fn, 1)
+        print(f"stream {name}: codec per 20-frame chunk, {mode}: {ms:.3f} ms by CUDA events "
+              f"(median of 10); device {dev_us / 1e3:.3f} ms, host {host_us / 1e3:.3f} ms "
+              f"with the host ahead", flush=True)
+    tts.clear_references()
 
 
 def main() -> int:

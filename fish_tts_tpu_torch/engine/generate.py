@@ -1,13 +1,21 @@
 """Generation loop: port of ``fish_tts_tpu/engine/generate.py`` for
-non-streaming single-stream generation.
+single-stream generation, streamed or not, with the reference-voice KV
+prefix.
 
 ``GenerationEngine.generate_long`` builds the prompt, right-pads it to the
 smallest configured bucket, sizes the KV-cache allocation, runs prefill
-plus the first chunk, then decode chunks of ``batch_chunk`` frames until
-EOS or the token budget, and yields the codes with the final frame
-stripped (the reference's batch-mode quirk).  The next chunk is launched
-before the previous one is read back, so the host enqueues work while the
-device runs.
+plus the first chunk, then decode chunks until EOS or the token budget.
+Non-streaming it decodes ``batch_chunk`` frames a call and yields the codes
+once, with the final frame stripped (the reference's batch-mode quirk);
+streaming it decodes ``decode_chunk`` frames a call and yields every chunk
+as it lands, the EOS frame included.  The next chunk is launched before
+the previous one is read back, so the host enqueues work while the device
+runs.
+
+``set_prefix`` prefills the reference blocks once into a state of the
+engine's own; a later call without references forks it (copies it into
+the call's persistent state, in place) and prefills only the target text
+at the prefix's offset.
 
 The engine keeps one decode state per (batch, cache allocation) and resets
 it in place for each generation.  On the card every decode frame after
@@ -23,7 +31,9 @@ after) and counts the tokens, as the JAX engine does.
 
 from __future__ import annotations
 
+import itertools
 import logging
+import threading
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -33,7 +43,7 @@ import torch
 from fish_tts_tpu_torch.config import DualARConfig, EngineConfig
 from fish_tts_tpu_torch.engine import decode as decode_mod
 from fish_tts_tpu_torch.models.dual_ar import Params, TokenIds, make_rope_tables
-from fish_tts_tpu_torch.models.prompt import build_prompt
+from fish_tts_tpu_torch.models.prompt import ContentSequence, TextPart, VQPart, build_prompt
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.utils.profiling import Metrics
 
@@ -82,18 +92,18 @@ def _chunk_len(remaining: int, chunk: int, decode_chunk: int) -> int:
     return max(decode_chunk, -(-remaining // decode_chunk) * decode_chunk)
 
 
-def _start_fetch(frames: torch.Tensor, emitted: torch.Tensor):
-    """Start a chunk's copy to the host right behind it in stream order, so
-    that reading it back waits for this chunk alone, not for the chunk
-    dispatched after it.  Returns (frames, emitted, the copy's CUDA event,
-    None on the CPU)."""
-    if frames.device.type != "cuda":
-        return frames, emitted, None
+def start_fetch(*tensors: torch.Tensor):
+    """Start copies of ``tensors`` to the host right behind them in stream
+    order, so that reading one back waits for its own work alone, not for
+    the work dispatched after it.  Returns (*the host tensors, the copies'
+    CUDA event, None on the CPU)."""
+    if tensors[0].device.type != "cuda":
+        return (*tensors, None)
     out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-           for t in (frames, emitted)]
+           for t in tensors]
     copied = torch.cuda.Event()
     copied.record()
-    return out[0], out[1], copied
+    return (*out, copied)
 
 
 class GenerationEngine:
@@ -125,14 +135,100 @@ class GenerationEngine:
                         "parts run on plain PyTorch", ecfg.sample_top_k, ecfg.fast_kernel,
                         ", ".join(off))
         self._seeds = np.random.default_rng(seed)
+        self._seeds_lock = threading.Lock()
         self.metrics = Metrics()
         self._states: dict[tuple, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
+        # The reference-voice prefix: (state, generation), replaced whole on
+        # each change so that a caller takes a consistent snapshot with one
+        # attribute read.  The state is the engine's own allocation, never a
+        # call's working state.
+        self._prefix_counter = itertools.count(1)
+        self._prefix_ref: tuple[decode_mod.State | None, int] = (None, 0)
 
     def _next_noise(self) -> decode_mod.GumbelNoise:
         """A fresh noise source for one generation."""
-        seed = int(self._seeds.integers(0, 2**63 - 1))
+        with self._seeds_lock:
+            seed = int(self._seeds.integers(0, 2**63 - 1))
         return decode_mod.GumbelNoise(seed, self.cfg, self.device)
+
+    def reseed(self, seed: int) -> None:
+        """Restart the sequence of per-generation noise seeds from ``seed``."""
+        with self._seeds_lock:
+            self._seeds = np.random.default_rng(seed)
+
+    # -- the reference-voice prefix --------------------------------------
+
+    def set_prefix(self, prompt_texts: list[str], prompt_codes: list[np.ndarray]) -> None:
+        """Prefill the reference blocks once; later calls without references
+        start from here.  The prefix is the prompt up to the final
+        [speaker, target text] block of the reference layout.  No texts
+        clears it."""
+        if not prompt_texts:
+            self._prefix_state = None
+            return
+        seq = ContentSequence(modality="interleave")
+        for t, c in zip(prompt_texts, prompt_codes):
+            seq.append([TextPart(text=t), VQPart(codes=c)], add_end=True, speaker=0)
+        enc = seq.encode_for_inference(self.tokenizer, self.cfg.num_codebooks)
+        padded, T = self._pad_prompt(enc.values)
+        state = decode_mod.init_state(self.params, self.cfg, batch=1,
+                                      window=self.engine_cfg.rep_penalty_window)
+        # the frame sampled off the prefix is discarded; a throwaway noise
+        # source leaves the per-call seed sequence as it was
+        decode_mod.prefill(
+            self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
+            torch.tensor([T], dtype=torch.int32, device=self.device),
+            decode_mod.GumbelNoise(0, self.cfg), 0.7, 0.8, 1.1, cfg=self.cfg, ids=self.ids,
+            kv_bucket=0, **self._options)
+        # only the KV cache and the position survive
+        for k in ("done", "frame", "step"):
+            state[k].zero_()
+        self._prefix_state = state
+        logger.info("Cached KV prefix of %d tokens for %d reference(s)", T, len(prompt_texts))
+
+    def clear_prefix(self) -> None:
+        self._prefix_state = None
+
+    @property
+    def _prefix_state(self) -> decode_mod.State | None:
+        return self._prefix_ref[0]
+
+    @_prefix_state.setter
+    def _prefix_state(self, state: decode_mod.State | None) -> None:
+        self._prefix_ref = (state, next(self._prefix_counter))
+
+    @property
+    def has_prefix(self) -> bool:
+        return self._prefix_ref[0] is not None
+
+    def _fork_prefix(self, prefix: decode_mod.State, alloc: int) -> decode_mod.State:
+        """Copy a prefix snapshot into the persistent state of (1, alloc),
+        in place (a captured decode graph holds that state's addresses):
+        the KV rows below ``min(S_prefix, alloc)`` (the rest zero), then
+        every other field.  The caller passes the one snapshot it gated on."""
+        state = self._fresh_state(1, alloc)
+        self._fork_kv(prefix["kv"], state["kv"])
+        for k, v in prefix.items():
+            if k != "kv":
+                state[k].copy_(v)
+        return state
+
+    @staticmethod
+    def _fork_kv(src: dict, dst: dict) -> None:
+        """Copy a prefix KV into a zeroed allocation of another size: sliced
+        when smaller (only dead rows drop: callers size it above the prefix
+        extent), zero-padded when larger."""
+        n = min(src["k"].shape[3], dst["k"].shape[3])
+        for k in ("k", "v"):
+            dst[k][:, :, :, :n].copy_(src[k][:, :, :, :n])
+
+    def _encode_suffix(self, text: str):
+        """Encode only the target-text block, the part of the reference
+        layout after the cached prefix."""
+        seq = ContentSequence(modality=None)
+        seq.append([TextPart(text=text)], add_end=False, speaker=0)
+        return seq.encode_for_inference(self.tokenizer, self.cfg.num_codebooks)
 
     @property
     def _large_chunk(self) -> int:
@@ -182,12 +278,17 @@ class GenerationEngine:
     def generate_long(self, text: str, *, num_samples: int = 1, max_new_tokens: int = 0,
                       top_p: float = 0.8, repetition_penalty: float = 1.1,
                       temperature: float = 0.8, prompt_text: list[str] | None = None,
-                      prompt_tokens: list[np.ndarray] | None = None,
+                      prompt_tokens: list[np.ndarray] | None = None, streaming: bool = False,
+                      use_prefix_cache: bool = True, show_progress: bool = False,
                       noise=None) -> Iterator[GenerateResponse]:
-        """Generate vocoder codes for ``text``: one ``"sample"`` with all codes
-        (final frame stripped) then a ``"next"``, per sample.  ``noise``
-        replaces the engine's own noise source (one per sample otherwise);
-        on the card it must be a ``GumbelNoise``, drawn inside the graph."""
+        """Generate vocoder codes for ``text``, per sample: non-streaming one
+        ``"sample"`` with all codes (final frame stripped), streaming one
+        ``"sample"`` per decoded chunk (the EOS frame included); then a
+        ``"next"``.  With ``use_prefix_cache`` and no ``prompt_text`` a
+        prefix set by :meth:`set_prefix` is forked and only the text is
+        prefilled.  ``show_progress`` logs each chunk.  ``noise`` replaces
+        the engine's own noise source (one per sample otherwise); on the
+        card it must be a ``GumbelNoise``, drawn inside the graph."""
         if not 0 < top_p <= 1:
             raise ValueError("top_p must be in (0, 1]")
         if not 0 < repetition_penalty < 2:
@@ -199,22 +300,34 @@ class GenerationEngine:
             raise TypeError("on a CUDA device the noise is drawn inside the decode graph: "
                             "pass a GumbelNoise")
         for _ in range(num_samples):
-            yield self._generate_one(
+            yield from self._generate_one(
                 text, max_new_tokens=max_new_tokens, top_p=top_p,
                 repetition_penalty=repetition_penalty, temperature=temperature,
                 prompt_text=prompt_text or [], prompt_tokens=prompt_tokens or [],
-                noise=noise or self._next_noise())
+                streaming=streaming, use_prefix_cache=use_prefix_cache,
+                show_progress=show_progress, noise=noise or self._next_noise())
             yield GenerateResponse(action="next")
 
     def _generate_one(self, text: str, *, max_new_tokens: int, top_p: float,
                       repetition_penalty: float, temperature: float,
                       prompt_text: list[str], prompt_tokens: list[np.ndarray],
-                      noise) -> GenerateResponse:
+                      streaming: bool, use_prefix_cache: bool, show_progress: bool,
+                      noise) -> Iterator[GenerateResponse]:
+        """One sample of ``generate_long``, without the trailing "next"."""
         cfg, ecfg, ids = self.cfg, self.engine_cfg, self.ids
         max_length = cfg.max_seq_len
-        enc = build_prompt(self.tokenizer, text, cfg.num_codebooks,
-                           prompt_texts=prompt_text, prompt_codes=prompt_tokens)
-        prompt_len = enc.values.shape[1]
+        # one snapshot: a later set_prefix/clear_prefix does not change what
+        # this call forks
+        prefix = self._prefix_ref[0]
+        use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
+        if use_cached_prefix:
+            enc = self._encode_suffix(text)
+            prefix_len = int(prefix["pos"][0])
+            prompt_len = prefix_len + enc.values.shape[1]
+        else:
+            enc = build_prompt(self.tokenizer, text, cfg.num_codebooks,
+                               prompt_texts=prompt_text, prompt_codes=prompt_tokens)
+            prefix_len, prompt_len = 0, enc.values.shape[1]
         reserve = min(2048, max_length // 2)
         if prompt_len > max_length - reserve:
             raise ValueError(f"Prompt is too long: {prompt_len} > {max_length - reserve}")
@@ -223,19 +336,23 @@ class GenerationEngine:
             max_new = min(max_new_tokens, max_new)
 
         padded, T = self._pad_prompt(enc.values)
+        # the worst-case decode extent, and never below the padded prefill's
+        # write extent
         alloc = _cache_bucket(max(prompt_len + max_new + 2 * self._large_chunk,
-                                  padded.shape[-1] + 1), max_length)
-        state = self._fresh_state(1, alloc)
+                                  prefix_len + padded.shape[-1] + 1), max_length)
+        state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
+                 else self._fresh_state(1, alloc))
         sampling = (temperature, top_p, repetition_penalty)
 
         # prefill (it loads the sampling parameters and noise keys into the
         # state) + the first chunk, straight-line; n0 == 0 when the prefill
         # frame fills the budget
         n0 = max(0, min(ecfg.first_chunk - 1, ecfg.decode_chunk, max_new - 1))
+        kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
         _, first = decode_mod.prefill(
             self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
             torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
-            cfg=cfg, ids=ids, kv_bucket=0, **self._options)
+            cfg=cfg, ids=ids, kv_bucket=kv_pre, **self._options)
         frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
                                                       device=self.device)
         if n0:
@@ -244,10 +361,12 @@ class GenerationEngine:
             frames, emitted = torch.cat([frames, f1], dim=1), torch.cat([emitted, e1], dim=1)
 
         dispatched = 1 + n0
-        pending = (*_start_fetch(frames, emitted), True)
+        pending = (*start_fetch(frames, emitted), True)
         produced = 0
         collected: list[np.ndarray] = []
-        chunk = self._large_chunk
+        # streaming keeps small chunks, each a vocoder input; otherwise as
+        # few read-backs as possible
+        chunk = ecfg.decode_chunk if streaming else self._large_chunk
         while pending is not None:
             frames_host, emitted_host, copied, is_first = pending
             nxt = None
@@ -256,8 +375,8 @@ class GenerationEngine:
                 n = _chunk_len(max_new - dispatched, chunk, ecfg.decode_chunk)
                 f2, e2 = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
                     prompt_len + dispatched + n, ecfg.kv_bucket_step, max_length)),
-                    early_exit=True)
-                nxt = (*_start_fetch(f2, e2), False)
+                    early_exit=not streaming)
+                nxt = (*start_fetch(f2, e2), False)
                 dispatched += n
             with self.metrics.span("prefill" if is_first else "decode"):
                 if copied is not None:
@@ -266,14 +385,22 @@ class GenerationEngine:
                 emitted_np = emitted_host.numpy()[0]
             done = bool((not emitted_np[-1]) or frames_np[0, -1, 0] == ids.im_end)
             self.metrics.record_tokens(int(min(emitted_np.sum(), max_new - produced)))
+            if show_progress and not is_first:
+                logger.info("decoded %d/%d frames%s", produced + int(emitted_np.sum()),
+                            max_new, " (EOS)" if done else "")
             valid = frames_np[:, emitted_np][:, :max_new - produced]
             produced += valid.shape[1]
             if valid.shape[1]:
                 collected.append(valid)
+                if streaming:
+                    codes = np.maximum(valid[0, :, 1:], 0)
+                    yield GenerateResponse(action="sample", codes=codes.T.astype(np.int64),
+                                           text=text)
             pending = None if (done or produced >= max_new) else nxt
 
-        all_frames = np.concatenate(collected, axis=1)[0]  # (n, 1+K)
-        # the final frame is stripped, EOS or not (reference quirk)
-        codes = all_frames[:-1, 1:].T if all_frames.shape[0] > 1 else all_frames[:0, 1:].T
-        codes = np.maximum(codes, 0)
-        return GenerateResponse(action="sample", codes=codes.astype(np.int64), text=text)
+        if not streaming:
+            all_frames = np.concatenate(collected, axis=1)[0]  # (n, 1+K)
+            # the final frame is stripped, EOS or not (reference quirk)
+            codes = all_frames[:-1, 1:].T if all_frames.shape[0] > 1 else all_frames[:0, 1:].T
+            codes = np.maximum(codes, 0)
+            yield GenerateResponse(action="sample", codes=codes.astype(np.int64), text=text)

@@ -16,6 +16,7 @@ still makes its parameters so a tree round-trips.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -189,9 +190,15 @@ def _residual_unit(p: Params, x, dilation: int):
     return x + y
 
 
-def _wlt_layer(lp: Params, h, tcfg: VocoderTransformerConfig, freqs, bias):
-    """One window-limited transformer layer, with the q/k/v split at
-    ``kv_size`` of the fused projection."""
+def wlt_layer_body(lp: Params, h, tcfg: VocoderTransformerConfig, freqs, bias,
+                   kv_cache=None):
+    """One window-limited transformer layer on (B, T, D), with the q/k/v split
+    at ``kv_size`` of the fused projection: the one source of the layer for
+    the joint forward (:func:`_wlt_forward`) and the streamed one
+    (``vocoder_stream.stream_wlt``).  ``freqs`` is (T, Dh/2, 2) or per
+    stream (B, T, Dh/2, 2); ``kv_cache`` an optional carried window (k, v)
+    (B, Hkv, W, Dh), put before this chunk's keys and values.  Returns
+    (h, (k, v)) with the keys and values (B, Hkv, [W +] T, Dh) attended."""
     H, Hkv, Dh = tcfg.n_head, tcfg.n_local_heads, tcfg.head_dim
     kv_size = Hkv * Dh
     B, T = h.shape[0], h.shape[1]
@@ -205,12 +212,23 @@ def _wlt_layer(lp: Params, h, tcfg: VocoderTransformerConfig, freqs, bias):
         q = apply_rotary_emb(q, freqs)
         k = apply_rotary_emb(k, freqs)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if kv_cache is not None:
+        k = torch.cat([kv_cache[0], k], dim=2)
+        v = torch.cat([kv_cache[1], v], dim=2)
     att = attention(q, k, v, bias)
     att = att.transpose(1, 2).reshape(B, T, H * Dh)
     h = h + (att @ lp["wo"]) * lp["attn_scale"]
     f_in = vocoder_rms_norm(h, lp["ffn_norm"], tcfg.norm_eps)
     f = (silu(f_in @ lp["w1"]) * (f_in @ lp["w3"])) @ lp["w2"]
-    return h + f * lp["ffn_scale"]
+    return h + f * lp["ffn_scale"], (k, v)
+
+
+@functools.cache
+def rope_table(n: int, head_dim: int, base: float, device: torch.device) -> torch.Tensor:
+    """The rotary (cos, sin) table of ``n`` positions on ``device``, made
+    once: a table copied from the host at each call would wait for the work
+    queued on the device before it.  Its rows do not depend on ``n``."""
+    return precompute_freqs_cis(n, head_dim, base, device=device)
 
 
 def _wlt_forward(p: Params, tcfg: VocoderTransformerConfig, window: int, x):
@@ -220,13 +238,13 @@ def _wlt_forward(p: Params, tcfg: VocoderTransformerConfig, window: int, x):
         x = x @ p["input_proj"]["w"] + p["input_proj"]["b"]
     T = x.shape[1]
     pos = torch.arange(T, device=x.device)
-    freqs = (precompute_freqs_cis(T, tcfg.head_dim, tcfg.rope_base, device=x.device)
+    freqs = (rope_table(max(T, tcfg.block_size), tcfg.head_dim, tcfg.rope_base, x.device)[:T]
              if tcfg.pos_embed_type == "rope" else None)
     bias = window_causal_bias(pos, pos, window)
     layers = p["layers"]
     for i in range(layers["wqkv"].shape[0]):
         lp = {k: v[i] for k, v in layers.items()}
-        x = _wlt_layer(lp, x, tcfg, freqs, bias)
+        x, _ = wlt_layer_body(lp, x, tcfg, freqs, bias)
     x = vocoder_rms_norm(x, p["norm"], tcfg.norm_eps)
     if "output_proj" in p:
         x = x @ p["output_proj"]["w"] + p["output_proj"]["b"]

@@ -1,15 +1,22 @@
-"""The public API: ``FishTTS.synthesize(text) -> WAV bytes`` on the card.
+"""The public API: ``FishTTS.synthesize(text) -> WAV bytes`` and
+``FishTTS.synthesize_stream(text) -> int16 PCM chunks`` on the card.
 
-Port of the non-streaming surface of ``fish_tts_tpu/synthesizer.py``:
+Port of the single-stream surface of ``fish_tts_tpu/synthesizer.py``:
 ``FishTTS`` (from a native model directory or a testing bundle, precision
-``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), ``synthesize`` with
-``references=`` per call, the engine's ``metrics`` and ``get_metrics()``,
-``VoiceProfile`` and the ``get_instance``/``reset_instance`` singleton.
+``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), ``synthesize`` and
+``synthesize_stream`` with ``references=`` per call or the stored ones
+(``set_references`` and friends: prefilled once into the engine's KV
+prefix), the engine's ``metrics`` and ``get_metrics()``, ``VoiceProfile``
+and the ``get_instance``/``reset_instance`` singleton.
 A float precision casts the LM and the codec to that dtype (the KV cache
 follows); ``int8`` keeps bf16 activations and codec with weight-only int8
 LM matmuls, the route of the three kernels.
 Entry points run on the card unless the caller asks for ``device="cpu"``;
 ``device="cuda"`` without a GPU raises.
+
+Streaming pipelines the LM and the codec in CUDA stream order, with no
+thread: a chunk's codec decode is enqueued, its copy to the host started,
+and it is read back only after the next LM chunk has been requested.
 """
 
 from __future__ import annotations
@@ -17,20 +24,20 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Literal
+from typing import Iterator, Literal
 
 import numpy as np
 import torch
 
 from fish_tts_tpu_torch.config import DualARConfig, EngineConfig, VocoderConfig
-from fish_tts_tpu_torch.engine.generate import GenerationEngine
-from fish_tts_tpu_torch.models import vocoder
+from fish_tts_tpu_torch.engine.generate import GenerationEngine, start_fetch
+from fish_tts_tpu_torch.models import vocoder, vocoder_stream
 from fish_tts_tpu_torch.models.dual_ar import cast_params
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.utils import checkpoint as ckpt
-from fish_tts_tpu_torch.utils.audio import to_wav_bytes
+from fish_tts_tpu_torch.utils.audio import to_pcm_bytes, to_wav_bytes
 from fish_tts_tpu_torch.utils.profiling import hbm_bytes_in_use
 from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
 
@@ -86,6 +93,74 @@ class VoiceProfile:
         return cls(codes=np.load(path), text=text, name=name or Path(path).stem)
 
 
+def _codes_to_device(codes: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Codes to the device without waiting for the work queued before them:
+    a blocking copy from pageable memory would wait for the LM chunk
+    already launched."""
+    t = torch.from_numpy(np.ascontiguousarray(codes))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class _StreamVocoder:
+    """One audio stream's stateful codec decode (``models/vocoder_stream``):
+    each chunk decodes only its own frames from the carried state, and the
+    chunks together equal the joint decode's waveform."""
+
+    def __init__(self, tts: "FishTTS"):
+        if tts._vocoder_params is None:
+            raise RuntimeError("Vocoder not loaded")
+        self._tts = tts
+        self._state = vocoder_stream.init_decode_state(tts._vocoder_params, tts._vocoder_cfg)
+
+    def decode_async(self, codes: np.ndarray):
+        """Enqueue one chunk (K, n) and its copy to the host; returns the
+        handle for ``FishTTS._force_pcm`` and n."""
+        tts = self._tts
+        self._state, audio = vocoder_stream.decode_chunk(
+            tts._vocoder_params, tts._vocoder_cfg, self._state,
+            _codes_to_device(codes[None], tts.device))
+        return start_fetch(audio.float()), codes.shape[-1]
+
+
+class _ContextBuffer:
+    """Rolling code history for the context-streamed codec decode.
+
+    ``take(codes)`` returns ``(decode_input, ctx)``: the chunk with up to
+    ``context_frames`` preceding frames put before it (``ctx`` of them),
+    and keeps the chunk as future context."""
+
+    def __init__(self, context_frames: int):
+        self.context_frames = context_frames
+        self._history: list[np.ndarray] = []
+        self._n = 0
+
+    def take(self, codes: np.ndarray) -> tuple[np.ndarray, int]:
+        ctx = 0
+        if self.context_frames > 0 and self._n > 0:
+            ctx_codes = np.concatenate(self._history, axis=1)[:, -self.context_frames:]
+            ctx = ctx_codes.shape[1]
+            codes = np.concatenate([ctx_codes, codes], axis=1)
+        self._history.append(codes[:, ctx:])
+        self._n += codes.shape[1] - ctx
+        # keep only what later context windows can use
+        while len(self._history) > 1 and (
+                self._n - self._history[0].shape[1] >= self.context_frames):
+            self._n -= self._history[0].shape[1]
+            self._history.pop(0)
+        return codes, ctx
+
+
+@dataclass
+class _PrefillCache:
+    """The stored references, consulted when ``references=None``."""
+
+    prompt_text: list[str] = field(default_factory=list)
+    prompt_tokens: list[np.ndarray] = field(default_factory=list)
+    profiles: list[VoiceProfile] = field(default_factory=list)
+
+
 class FishTTS:
     """DualAR transformer + DAC vocoder, PyTorch on the card.
 
@@ -103,6 +178,8 @@ class FishTTS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         self.device = resolve_device(device)
         self._precision = precision
+        self._prefill_cache = _PrefillCache()
+        self._prefill_lock = threading.Lock()
         if _testing_bundle is not None:
             (self._cfg, params, self._tokenizer,
              self._vocoder_cfg, self._vocoder_params) = _testing_bundle
@@ -148,9 +225,9 @@ class FishTTS:
         return cfg, params, tokenizer, vcfg, vparams
 
     def _run_warmup(self) -> None:
-        """One short generation and one vocoder decode; errors propagate.
-        On the card the generation captures the decode graphs a short call
-        meets."""
+        """One short generation, the codec at the first decode bucket and
+        the stream's 10- and 20-frame chunks; errors propagate.  On the card
+        the generation captures the decode graphs a short call meets."""
         t0 = time.perf_counter()
         for response in self._engine.generate_long("Hello.", max_new_tokens=20,
                                                    temperature=0.7, top_p=0.8,
@@ -158,20 +235,76 @@ class FishTTS:
             if response.action == "next":
                 break
         if self._vocoder_params is not None:
-            self._decode_codes(np.zeros((self._vocoder_cfg.num_codebooks, 10), np.int64))
+            K = self._vocoder_cfg.num_codebooks
+            self._decode_codes(np.zeros((K, 10), np.int64))
+            sv = _StreamVocoder(self)
+            for n in (10, 20):
+                self._force_pcm(*sv.decode_async(np.zeros((K, n), np.int64)))
         logger.info("Warmup complete in %.1fs", time.perf_counter() - t0)
+
+    # -- the reference store ----------------------------------------------
+
+    def set_references(self, profiles: list[VoiceProfile]) -> None:
+        """Store voice profiles and prefill them into the engine's KV prefix."""
+        with self._prefill_lock:
+            self._prefill_cache = _PrefillCache(
+                prompt_text=[p.text for p in profiles],
+                prompt_tokens=[np.asarray(p.codes) for p in profiles],
+                profiles=list(profiles))
+            self._engine.set_prefix(self._prefill_cache.prompt_text,
+                                    self._prefill_cache.prompt_tokens)
+            logger.info("Set %d reference(s)", len(profiles))
+
+    def add_reference(self, profile: VoiceProfile) -> None:
+        with self._prefill_lock:
+            self._prefill_cache.profiles.append(profile)
+            self._prefill_cache.prompt_text.append(profile.text)
+            self._prefill_cache.prompt_tokens.append(np.asarray(profile.codes))
+            self._engine.set_prefix(self._prefill_cache.prompt_text,
+                                    self._prefill_cache.prompt_tokens)
+            logger.info("Added reference '%s', total: %d", profile.name,
+                        len(self._prefill_cache.profiles))
+
+    def clear_references(self) -> None:
+        with self._prefill_lock:
+            self._prefill_cache = _PrefillCache()
+            self._engine.clear_prefix()
+            logger.info("Cleared all references")
+
+    def get_references(self) -> list[VoiceProfile]:
+        with self._prefill_lock:
+            return list(self._prefill_cache.profiles)
+
+    @property
+    def num_references(self) -> int:
+        with self._prefill_lock:
+            return len(self._prefill_cache.profiles)
+
+    def _get_prompt_data(self, references: list[VoiceProfile] | None
+                         ) -> tuple[list[str], list[np.ndarray], bool]:
+        """(texts, codes, use the cached prefix): a list given, even an
+        empty one, is used as it is; ``None`` takes the stored references,
+        through the engine's prefix when it holds them."""
+        if references is not None:
+            return [p.text for p in references], [np.asarray(p.codes) for p in references], False
+        with self._prefill_lock:
+            if self._engine.has_prefix:
+                return [], [], True
+            return (list(self._prefill_cache.prompt_text),
+                    list(self._prefill_cache.prompt_tokens), False)
+
+    # -- synthesis -----------------------------------------------------------
 
     def synthesize(self, text: str, references: list[VoiceProfile] | None = None,
                    temperature: float = 0.7, top_p: float = 0.8,
                    repetition_penalty: float = 1.1, max_tokens: int = 2048) -> bytes:
         """Synthesize speech from text.  Returns WAV bytes."""
-        references = references or []
+        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
         codes_list = []
         for response in self._engine.generate_long(
             text, max_new_tokens=max_tokens, temperature=temperature, top_p=top_p,
-            repetition_penalty=repetition_penalty,
-            prompt_text=[p.text for p in references],
-            prompt_tokens=[np.asarray(p.codes) for p in references],
+            repetition_penalty=repetition_penalty, prompt_text=prompt_text,
+            prompt_tokens=prompt_tokens, use_prefix_cache=use_prefix,
         ):
             if response.action == "sample":
                 codes_list.append(response.codes)
@@ -181,23 +314,122 @@ class FishTTS:
             raise RuntimeError("No audio generated")
         return self._decode_to_wav(np.concatenate(codes_list, axis=1))
 
-    @torch.no_grad()
-    def _decode_codes(self, codes: np.ndarray) -> np.ndarray:
-        """codes (K, n) -> float32 audio (n * frame_length,), decoded at the
-        padded bucket length."""
+    def synthesize_stream(self, text: str, references: list[VoiceProfile] | None = None,
+                          chunk_tokens: int = 20, min_first_chunk: int = 10,
+                          context_frames: int = 32, temperature: float = 0.7,
+                          top_p: float = 0.8, repetition_penalty: float = 1.1,
+                          max_tokens: int = 2048,
+                          vocoder_mode: Literal["stateful", "context"] = "stateful"
+                          ) -> Iterator[bytes]:
+        """Streaming synthesis: yields raw int16 PCM chunks (mono, the
+        codec's rate).  The first flush comes at ``min_first_chunk`` frames,
+        then one every ``chunk_tokens``, then the rest.
+
+        The first chunk is decoded and read back at once; every later one is
+        enqueued and read back after the next LM chunk has been requested,
+        so the device works on it while the host sets up the next step.
+
+        ``vocoder_mode``: ``"stateful"`` (default) carries the codec's exact
+        state across chunks (``models/vocoder_stream``), so the chunks
+        together equal the joint decode; ``context_frames`` is ignored.
+        ``"context"`` decodes ``context_frames`` of history before each
+        chunk and trims it.  Unknown keyword arguments raise ``TypeError``.
+        """
+        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
+        buffer: list[np.ndarray] = []
+        total = 0
+        is_first = True
+        in_flight = None  # the previous chunk's handle, not yet read back
+
+        if vocoder_mode == "stateful":
+            sv = _StreamVocoder(self)
+
+            def flush(buffer):
+                handle, n = sv.decode_async(np.concatenate(buffer, axis=1))
+                return handle, n, 0
+        elif vocoder_mode == "context":
+            ctx_buf = _ContextBuffer(context_frames)
+
+            def flush(buffer):
+                codes, ctx = ctx_buf.take(np.concatenate(buffer, axis=1))
+                handle, n = self._decode_codes_async(codes)
+                return handle, n - ctx, ctx
+        else:
+            raise ValueError(f"vocoder_mode must be 'stateful' or 'context', not "
+                             f"{vocoder_mode!r}")
+
+        for response in self._engine.generate_long(
+            text, max_new_tokens=max_tokens, temperature=temperature, top_p=top_p,
+            repetition_penalty=repetition_penalty, prompt_text=prompt_text,
+            prompt_tokens=prompt_tokens, streaming=True, use_prefix_cache=use_prefix,
+        ):
+            if response.action == "sample":
+                buffer.append(response.codes)
+                total += response.codes.shape[1]
+                if total >= (min_first_chunk if is_first else chunk_tokens):
+                    handle = flush(buffer)
+                    buffer, total = [], 0
+                    if is_first:
+                        # the first audio is what the listener waits for
+                        yield self._force_pcm(*handle)
+                    else:
+                        if in_flight is not None:
+                            yield self._force_pcm(*in_flight)
+                        in_flight = handle
+                    is_first = False
+            elif response.action == "next":
+                if buffer:
+                    if in_flight is not None:
+                        yield self._force_pcm(*in_flight)
+                    in_flight = flush(buffer)
+                break
+        if in_flight is not None:
+            yield self._force_pcm(*in_flight)
+
+    # -- the codec -------------------------------------------------------------
+
+    def _decode_codes_async(self, codes: np.ndarray):
+        """Enqueue the codec decode of codes (K, n) at the padded bucket
+        length and its copy to the host.  Returns (handle, n) for
+        :meth:`_force_pcm`."""
         if self._vocoder_params is None:
             raise RuntimeError("Vocoder not loaded")
         n = codes.shape[-1]
         padded = np.zeros((1, codes.shape[0], _vocoder_bucket(n)), np.int64)
         padded[0, :, :n] = codes
+        audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
+                                   _codes_to_device(padded, self.device))
+        return start_fetch(audio.float()), n
+
+    @staticmethod
+    def _read_audio(handle) -> np.ndarray:
+        """Wait for an enqueued decode's host copy: float32 (samples,)."""
+        host, copied = handle
+        if copied is not None:
+            copied.synchronize()
+        return host[0, 0].numpy()
+
+    def _force_pcm(self, handle, n_frames: int, skip_frames: int = 0) -> bytes:
+        """An enqueued decode as int16 PCM, without ``skip_frames`` of
+        (context) audio at the front."""
         with self._engine.metrics.span("vocoder"):
-            audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
-                                       torch.as_tensor(padded, device=self.device))
-            arr = audio[0, 0].float().cpu().numpy()
+            arr = self._read_audio(handle)
+        fl = self._vocoder_cfg.frame_length
+        return to_pcm_bytes(arr[skip_frames * fl:(skip_frames + n_frames) * fl])
+
+    def _decode_codes(self, codes: np.ndarray) -> np.ndarray:
+        """codes (K, n) -> float32 audio (n * frame_length,), decoded at the
+        padded bucket length."""
+        with self._engine.metrics.span("vocoder"):
+            handle, n = self._decode_codes_async(codes)
+            arr = self._read_audio(handle)
         return arr[: n * self._vocoder_cfg.frame_length]
 
     def _decode_to_wav(self, codes: np.ndarray) -> bytes:
         return to_wav_bytes(self._decode_codes(codes), self.sample_rate)
+
+    def _decode_to_pcm(self, codes: np.ndarray) -> bytes:
+        return to_pcm_bytes(self._decode_codes(codes))
 
     @property
     def engine(self) -> GenerationEngine:
