@@ -15,10 +15,12 @@ printing its own lines; any failure raises and the script exits non-zero:
    whose ties keep the live set above the kernel's capacity); the slow
    stack in SLOW_CASES (B = 1, 4 and 16, its limit; one B = 4 call at the
    edge positions: no live rows, clamped at read_len, off the chunk grid;
-   a 1024-row read of a 2048-row cache at positions 661-1000); the fast
-   decoder at B = 1, 4 and 16 (its limit); the slow stack's head-less
-   variant (an untied head) at B = 1, 4 and 16, with the slow stack's
-   checks.  Sampler: two calls bit-equal,
+   a 1024-row read of a 2048-row cache at positions 661-1000; B = 8 at the
+   positions of two prefill groups); the fast decoder at B = 1, 4 and 16
+   (its limit); the sampler and the fast decoder at B = 8 with (B, 1)
+   sampling columns whose rows differ (PER_ROW), as a batch with
+   per-stream parameters gives; the slow stack's head-less variant (an
+   untied head) at B = 1, 4 and 16, with the slow stack's checks.  Sampler: two calls bit-equal,
    tokens equal to the plain version's but at knife edges of its own
    numbers (``testing.slow_decision_margins``, counted and printed), at
    most 40 cluster-wide rounds and none at top_p 1; the round counter
@@ -49,7 +51,9 @@ printing its own lines; any failure raises and the script exits non-zero:
    Then the tiny config with a forced EOS: the graph on the card against
    the CPU's eager loop, equal frames and integer state.
 5. main: first the engine at the tiny config on the card against the same
-   engine on the CPU with the same noise (equal codes over 40 frames); then
+   engine on the CPU with the same noise (equal codes over 40 frames, for
+   one stream and for a batch of three in two prompt buckets with
+   per-stream sampling parameters); then
    ``FishTTS(device="cuda", precision="int8")`` with random S1-mini
    weights (full 28-layer widths) and the full-width codec;
    ``synthesize(text, max_tokens=MAX_TOKENS)``, and the same with a
@@ -87,8 +91,21 @@ printing its own lines; any failure raises and the script exits non-zero:
    graph replay; time to first audio (median of STREAM_RUNS calls) and the
    whole stream's frames/s; the codec's device time per 20-frame chunk.
 
-Then one JSON line of per-kernel records (main-path shapes, B = 1; the
-sampler on bf16-rounded logits) and, last,
+8. batch (on the same two instances, after their stream phase):
+   ``synthesize_batch`` at B = 1, 4, 8 and 16 (BATCH_SIZES), texts in two
+   prompt buckets and per-stream sampling parameters, each B warmed once:
+   WAV headers and samples per stream, each kernel launched once per frame
+   for the whole batch (and once per prompt group's prefill) on its route,
+   every decode frame a graph replay; aggregate frames/s (emitted frames
+   summed over the streams, over the call's wall time and over the LM's),
+   RTF and peak device memory.  At B = 4: the graph route and the eager
+   loop give equal codes; ``synthesize_batch_stream`` in both codec modes
+   streams the non-streamed codes plus each stream's final frame, the
+   stateful pool's PCM within STREAM_PCM_TOL of each stream's joint
+   decode; each stream's time to first audio.
+
+Then the whole run's wall time, one JSON line of per-kernel records
+(main-path shapes, B = 1; the sampler on bf16-rounded logits) and, last,
 ``{"ok": true, "device": {...}}``; the head-less slow stack's launches are
 those of the untied-head call.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -154,9 +171,20 @@ SLOW_CASES = [
     ("edge B=4", 4, CACHE_LEN, READ_LEN, [0, READ_LEN + 44, 130, 192]),
     # the depth a voice cloned from a 661-frame reference reaches
     ("long B=1", 1, 2048, 1024, (REF_FRAMES, 1001)),
+    # a batch of two prefill groups, SHORT_TEXT's rows and TEXT's, 32 frames in
+    ("B=8 two groups", 8, CACHE_LEN, READ_LEN, [57, 57, 57, 57, 120, 120, 120, 120]),
 ]
 SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by phase
 HEADLESS = "slow_stack_step (no head)"  # the slow-stack kernel for an untied head
+# The batch phase: B streams, alternately TEXT (the 128-token prompt bucket)
+# and SHORT_TEXT (the 64-token one); per-stream sampling parameters.
+BATCH_SIZES = (1, 4, 8, 16)
+SHORT_TEXT = "Hello there, how are you today?"
+BATCH_EAGER_TOKENS = {"int8": MAX_TOKENS, "bf16": 20}  # frames of the graph-vs-eager call
+# The tiny engine's batch on the card against the CPU: three texts in two
+# prompt buckets of EngineConfig(prompt_buckets=TINY_BUCKETS).
+TINY_TEXTS = ("hello there", "hi", "ok go")
+TINY_BUCKETS = (16, 32, 64)
 
 # H100 SXM data sheet (dense): memory rate, bf16 tensor-core rate and f32
 # CUDA-core rate.
@@ -236,6 +264,17 @@ def check_skip_flag(label: str, call, plain, got, dev) -> str:
 
 
 SAMPLER_CASES = ("f32", "bf16", "top_p=1", "ints")
+PER_ROW = "per-row columns"  # bf16 logits, (B, 1) sampling columns whose rows differ
+
+
+def per_row_columns(B: int, dev):
+    """(B, 1) temperature, top-p and penalty columns whose rows differ (the
+    last row at top-p 1), as a batch with per-stream parameters gives."""
+    import torch
+
+    i = torch.arange(B, device=dev, dtype=torch.float32)[:, None]
+    return (0.5 + 0.1 * (i % 7), torch.where(i == B - 1, 1.0, 0.6 + 0.05 * (i % 6)),
+            1.0 + 0.05 * (i % 5))
 SAMPLER_PARTS = ("load + penalty", "softmax exchange", "first pass", "cluster rounds",
                  "argmax of kept rows", "compaction", "rank 0 levels", "final argmax")
 
@@ -244,7 +283,7 @@ def sampler_inputs(B: int, case: str, gen, dev):
     """Seeded inputs of the slow sampler at S1-mini shapes: f32 randn x 3
     logits; the same rounded to bf16, as the main path feeds them (full of
     ties); top_p 1; integer-valued logits whose ties keep the live set above
-    the kernel's capacity for every level."""
+    the kernel's capacity for every level; bf16 with per-row columns."""
     import torch
 
     from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
@@ -262,6 +301,8 @@ def sampler_inputs(B: int, case: str, gen, dev):
     t, p, r = (torch.full((B, 1), v, device=dev) for v in SAMPLING)
     if case == "top_p=1":
         p.fill_(1.0)
+    if case == PER_ROW:
+        t, p, r = per_row_columns(B, dev)
     return logits, prev, g, t, p, r
 
 
@@ -533,8 +574,9 @@ def slow_phase_breakdown(kern, cfg, dev) -> list[str]:
     return phase_breakdown(kern, ss, slow_phase_labels(cfg), dev)
 
 
-def fast_inputs(cfg, B: int, gen, dev):
-    """Seeded inputs of the fast decoder at the main path's shapes."""
+def fast_inputs(cfg, B: int, gen, dev, per_row: bool = False):
+    """Seeded inputs of the fast decoder at the main path's shapes, with
+    sampling columns whose rows differ when ``per_row``."""
     import torch
 
     from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
@@ -547,17 +589,19 @@ def fast_inputs(cfg, B: int, gen, dev):
                          dtype=torch.int32)
     g = gumbel_from_uniform(torch.rand((B, K - 1, Vr), generator=gen, device=dev))
     t, p, r = (torch.full((B, 1), v, device=dev) for v in SAMPLING)
+    if per_row:
+        t, p, r = per_row_columns(B, dev)
     return h, a0, prev, g, t, p, r
 
 
-def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
+def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = False):
     import torch
 
     from fish_tts_tpu_torch.ops import fast_decoder as fd
     from fish_tts_tpu_torch.testing import fast_decision_margins
 
     K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
-    h, a0, prev, g, t, p, r = fast_inputs(cfg, B, gen, dev)
+    h, a0, prev, g, t, p, r = fast_inputs(cfg, B, gen, dev, per_row)
     args = (params, cfg, rope, h, a0, prev, g, t, p, r)
 
     def kern(skip=None):
@@ -592,8 +636,9 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev):
     bms, by = bound(read + written, ops, BF16_OPS_PER_S)
     # the bound if the layers stream from device memory once per position
     streamed_ms = (read + (K - 1) * nbytes(*weights) + written) / HBM_BYTES_PER_S * 1e3
-    for line in fast_phase_breakdown(kern, cfg, dev):
-        print(f"kernel fast_decode_frame B={B} phases: {line}", flush=True)
+    if not per_row:
+        for line in fast_phase_breakdown(kern, cfg, dev):
+            print(f"kernel fast_decode_frame B={B} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 max_abs_err=m["max_abs_err"],
                 note=(f"codes equal but for {m['knife_edges']} knife edge(s), two calls "
@@ -637,6 +682,8 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
     for B in batches:
         for case in SAMPLER_CASES:
             report("sample_slow", f"B={B} {case}", check_sampler(B, case, gen, dev))
+    # a batch's size the checks above skip, with per-stream sampling columns
+    report("sample_slow", f"B=8 {PER_ROW}", check_sampler(8, PER_ROW, gen, dev))
     results["sample_slow"]["B=1"] = results["sample_slow"]["B=1 bf16"]  # the main path's input
     for case in slow_cases:
         report("slow_stack_step", case[0], check_slow_stack(params, cfg, rope["slow"], case,
@@ -644,6 +691,8 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
     for B in fast_batches:
         report("fast_decode_frame", f"B={B}",
                check_fast_decoder(params, cfg, rope["fast"], B, gen, dev))
+    report("fast_decode_frame", f"B=8 {PER_ROW}",
+           check_fast_decoder(params, cfg, rope["fast"], 8, gen, dev, per_row=True))
     untied = dataclasses.replace(cfg, tie_word_embeddings=False)
     for case in slow_cases[:3]:  # B = 1, 4, 16
         report(HEADLESS, case[0], check_slow_stack(params, untied, rope["slow"], case, gen, dev))
@@ -872,11 +921,15 @@ def check_tiny_eos(dev, n: int = 24) -> None:
 def check_tiny_engine(dev, frames: int = 40) -> None:
     """The engine on the card against the same engine on the CPU (plain
     versions, held against the JAX package by the CPU tests) at the tiny
-    config with int8 f32 weights and the same noise: equal codes."""
+    config with int8 f32 weights and the same noise: equal codes, for one
+    stream and for a batch of TINY_TEXTS in two prompt buckets with
+    per-stream sampling parameters."""
     import numpy as np
 
+    from fish_tts_tpu_torch.config import EngineConfig
     from fish_tts_tpu_torch.engine.decode import GumbelNoise
     from fish_tts_tpu_torch.engine.generate import GenerationEngine
+    from fish_tts_tpu_torch.models.prompt import build_prompt
     from fish_tts_tpu_torch.testing import make_tiny_bundle
     from fish_tts_tpu_torch.utils.checkpoint import to_device
     from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
@@ -896,6 +949,21 @@ def check_tiny_engine(dev, frames: int = 40) -> None:
              f"({codes[1].shape} vs {codes[0].shape})")
     print(f"main: tiny config, {codes[0].shape[1] + 1} frames on the card equal to the "
           f"CPU path's", flush=True)
+    batches = []
+    for device in ("cpu", dev):
+        engine = GenerationEngine(to_device(params, device), cfg, tok,
+                                  EngineConfig(prompt_buckets=TINY_BUCKETS))
+        batches.append(engine.generate_batch(list(TINY_TEXTS), max_new_tokens=frames,
+                                             **batch_sampling(len(TINY_TEXTS))))
+    groups = len(engine._bucket_groups(np.array([
+        build_prompt(tok, t, cfg.num_codebooks).values.shape[1] for t in TINY_TEXTS])))
+    if groups != 2 or not all(a.shape == b.shape and np.array_equal(a, b)
+                              for a, b in zip(*batches)):
+        fail(f"tiny engine batch: {groups} prompt groups; codes on the card differ from the CPU "
+             f"path's ({[c.shape for c in batches[1]]} vs {[c.shape for c in batches[0]]})")
+    print(f"main: tiny config, a batch of {len(TINY_TEXTS)} streams in {groups} prompt buckets "
+          f"with per-stream sampling: {[c.shape[1] + 1 for c in batches[0]]} frames on the card "
+          f"equal to the CPU path's", flush=True)
 
 
 def observe(tts) -> dict:
@@ -960,6 +1028,7 @@ def phase_main(dev, profile_dir=None):
         profile_synthesize(tts, Path(profile_dir), seen["frames"])
         sampler_on_path(tts)
     phase_stream(tts, seen, "int8")
+    phase_batch(tts, "int8")
     return launches
 
 
@@ -1098,25 +1167,26 @@ def zero_counts() -> None:
     decode.graph_replays = decode.eager_frames = 0
 
 
-def route_counts(engine, label: str, min_replays: int):
+def route_counts(engine, label: str, min_replays: int, batch: int = 1, prefills: int = 1):
     """The launch counts since :func:`zero_counts`, which must be what the
-    call's route implies (``decode.route``: a kernel on it launches once per
-    frame, the sampler and the fast decoder also for the prefill frame, the
-    slow stack only in decode; a kernel off it not at all), with every
-    decode frame, at least ``min_replays``, replayed from a captured graph.
-    Returns (launches, replays, the route)."""
+    call's route at ``batch`` streams implies (``decode.route``: a kernel on
+    it launches once per frame for the whole batch, the sampler and the fast
+    decoder also once per prefill, of which a batch makes one per prompt
+    bucket, ``prefills``; the slow stack only in decode; a kernel off it not
+    at all), with every decode frame, at least ``min_replays``, replayed
+    from a captured graph.  Returns (launches, replays, the route)."""
     from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
     launches = {"sample_slow": sampler_kernel.launches, "slow_stack_step": slow_stack.launches,
                 "fast_decode_frame": fast_decoder.launches}
     replays, eager = decode.graph_replays, decode.eager_frames
-    rt = decode.route(engine.cfg, engine.params, 1, engine.engine_cfg.rep_penalty_window,
+    rt = decode.route(engine.cfg, engine.params, batch, engine.engine_cfg.rep_penalty_window,
                       **engine._options)
     decoded = replays + eager
-    want = {"sample_slow": rt.sampler * (1 + decoded),
+    want = {"sample_slow": rt.sampler * (prefills + decoded),
             "slow_stack_step": rt.slow_stack * decoded,
-            "fast_decode_frame": rt.fast * (1 + decoded)}
+            "fast_decode_frame": rt.fast * (prefills + decoded)}
     if launches != want or not any(want.values()):
         fail(f"{label}: kernel launches {launches}, the route implies {want}")
     if replays < min_replays or eager:
@@ -1234,6 +1304,7 @@ def phase_float(dev, profile_dir=None) -> int:
         profile_synthesize(tts, Path(profile_dir), FLOAT_PROFILE_TOKENS + 1,
                            max_tokens=FLOAT_PROFILE_TOKENS, name="bf16_synthesize")
     phase_stream(tts, seen, "bf16")
+    phase_batch(tts, "bf16")
     del tts, seen, e
     torch.cuda.empty_cache()
 
@@ -1533,6 +1604,212 @@ def phase_stream(tts, seen, name: str) -> None:
     tts.clear_references()
 
 
+# --- phase 8: batched synthesis ----------------------------------------------------
+
+
+def batch_texts(B: int) -> list[str]:
+    """B texts in two prompt buckets (one for B = 1): TEXT, SHORT_TEXT, ..."""
+    return [TEXT if i % 2 == 0 else SHORT_TEXT for i in range(B)]
+
+
+def batch_sampling(B: int) -> dict:
+    """Sampling parameters of a batch: one value per stream, differing
+    between streams (SAMPLING's scalars for B = 1)."""
+    if B == 1:
+        return dict(zip(("temperature", "top_p", "repetition_penalty"), SAMPLING))
+    return {"temperature": [0.6 + 0.05 * (i % 4) for i in range(B)],
+            "top_p": [0.7 + 0.05 * (i % 5) for i in range(B)],
+            "repetition_penalty": [1.0 + 0.05 * (i % 3) for i in range(B)]}
+
+
+def prompt_groups(engine, texts) -> int:
+    """The prompt buckets ``texts`` fall in (the batch's prefills)."""
+    import numpy as np
+
+    from fish_tts_tpu_torch.models.prompt import build_prompt
+
+    return len(engine._bucket_groups(np.array([
+        build_prompt(engine.tokenizer, t, engine.cfg.num_codebooks).values.shape[1]
+        for t in texts])))
+
+
+def batch_once(tts, name: str, B: int) -> dict:
+    """``synthesize_batch`` of B streams after one warm call at that B (its
+    graph captures), with every count set to 0 just before the checked call:
+    each stream's WAV header and samples ((frames - 1) x 2048), the launches
+    of the route at B (once per frame for the whole batch, the sampler and
+    fast decoder also once per prompt group's prefill) and every decode
+    frame a graph replay.  Prints aggregate frames/s (emitted frames summed
+    over the streams, over the call's wall time and over the LM's), RTF and
+    the peak device memory of the call."""
+    import numpy as np
+    import torch
+
+    engine = tts.engine
+    texts, kw = batch_texts(B), batch_sampling(B)
+    gen_batch, rec = engine.generate_batch, {}
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        rec["codes"] = gen_batch(*a, **k)
+        torch.cuda.synchronize()
+        rec["gen_s"] = time.perf_counter() - t
+        return rec["codes"]
+
+    label = f"batch {name} B={B}"
+    with mock.patch.object(engine, "generate_batch", timed):
+        tts.synthesize_batch(texts, max_tokens=MAX_TOKENS, **kw)  # warm
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        wavs = tts.synthesize_batch(texts, max_tokens=MAX_TOKENS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    frames = [c.shape[1] + 1 for c in rec["codes"]]  # generate_batch strips the final frame
+    groups = prompt_groups(engine, texts)
+    launches, replays, rt = route_counts(engine, label, max(frames) - 1, batch=B,
+                                         prefills=groups)
+    hop = tts._vocoder_cfg.frame_length
+    samples = 0
+    for b, wav in enumerate(wavs):
+        with wave.open(io.BytesIO(wav)) as w:
+            header = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), np.int16)
+        if wav[:4] != b"RIFF" or header != (1, 2, tts.sample_rate):
+            fail(f"{label}: stream {b}: bad WAV header {wav[:4]!r} {header}")
+        if not 2 <= frames[b] <= MAX_TOKENS or n != (frames[b] - 1) * hop or not pcm.any():
+            fail(f"{label}: stream {b}: {n} samples for {frames[b]} frames")
+        samples += n
+    fps, lm_fps = sum(frames) / wall, sum(frames) / rec["gen_s"]
+    rtf = wall / (samples / tts.sample_rate)
+    print(f"{label}: {B} streams in {groups} prompt bucket(s), {frames} frames; "
+          f"{wall:.3f} s wall = {fps:.1f} aggregate frames/s, LM {rec['gen_s']:.3f} s = "
+          f"{lm_fps:.1f} frames/s; RTF {rtf:.4f}; peak device memory {peak_gb:.2f} GiB; "
+          f"kernel launches {json.dumps(launches)} for {replays} decode frames, all replayed "
+          f"from captured graphs, 0 eager", flush=True)
+    return {"fps": fps, "lm_fps": lm_fps, "rtf": rtf, "peak_gb": peak_gb, "launches": launches}
+
+
+def batch_codes(engine, B: int, tokens: int):
+    """Each stream's codes of a B-stream ``generate_batch`` with the engine
+    reseeded to SEED."""
+    engine.reseed(SEED)
+    return engine.generate_batch(batch_texts(B), max_new_tokens=tokens, **batch_sampling(B))
+
+
+def batch_stream_call(tts, B: int, mode: str) -> dict:
+    """One ``synthesize_batch_stream`` of B streams with the engine reseeded
+    to SEED: each stream's PCM chunks and streamed codes, and its time to
+    first audio (the call to the first round that holds its chunk)."""
+    import numpy as np
+
+    from fish_tts_tpu_torch.engine.generate import GenerationEngine
+
+    engine = tts.engine
+    texts, kw = batch_texts(B), batch_sampling(B)
+    codes, chunks, ttfa = [[] for _ in texts], [[] for _ in texts], [None] * B
+    real = GenerationEngine.generate_batch_stream.__get__(engine)
+
+    def recording(*a, **k):
+        for chunk in real(*a, **k):
+            for b, c in enumerate(chunk):
+                if c is not None:
+                    codes[b].append(c)
+            yield chunk
+
+    engine.reseed(SEED)
+    with mock.patch.object(engine, "generate_batch_stream", recording):
+        t = time.perf_counter()
+        for rnd in tts.synthesize_batch_stream(texts, max_tokens=MAX_TOKENS, vocoder_mode=mode,
+                                               **kw):
+            now = time.perf_counter() - t
+            if len(rnd) != B:
+                fail(f"batch stream {mode}: a round of {len(rnd)} chunks for {B} streams")
+            for b, c in enumerate(rnd):
+                if c is not None:
+                    chunks[b].append(c)
+                    ttfa[b] = now if ttfa[b] is None else ttfa[b]
+        wall = time.perf_counter() - t
+    return {"codes": [np.concatenate(c, axis=1) for c in codes], "chunks": chunks,
+            "ttfa": ttfa, "wall": wall,
+            "pcm": [np.frombuffer(b"".join(c), np.int16).astype(np.int32) for c in chunks]}
+
+
+def check_batch_stream(tts, name: str, B: int, batch) -> None:
+    """``synthesize_batch_stream`` of B streams in both codec modes, each
+    warmed once: chunks of whole frames, the first of at least 10, the
+    streamed codes equal to ``batch`` (the non-streamed codes) plus each
+    stream's final frame, the launches of the route and every decode frame
+    a graph replay; the stateful pool's PCM per stream within
+    STREAM_PCM_TOL of the joint decode of its codes, the context mode's
+    error printed.  Prints each stream's time to first audio and the whole
+    call's aggregate frames/s (STREAM_RUNS timed calls after the checked
+    one)."""
+    import numpy as np
+
+    hop = tts._vocoder_cfg.frame_length
+    groups = prompt_groups(tts.engine, batch_texts(B))
+    for mode in ("stateful", "context"):
+        label = f"batch {name} B={B} stream {mode}"
+        batch_stream_call(tts, B, mode)  # warm
+        zero_counts()
+        r = batch_stream_call(tts, B, mode)
+        n = [c.shape[1] for c in r["codes"]]
+        route_counts(tts.engine, label, max(n) - 1, batch=B, prefills=groups)
+        for b in range(B):
+            sizes = [len(c) // (2 * hop) for c in r["chunks"][b]]
+            if (any(len(c) % (2 * hop) for c in r["chunks"][b]) or sum(sizes) != n[b]
+                    or sizes[0] < 10):
+                fail(f"{label}: stream {b}: chunks of {sizes} frames for {n[b]} frames")
+            if n[b] != batch[b].shape[1] + 1 or not np.array_equal(r["codes"][b][:, :-1],
+                                                                    batch[b]):
+                fail(f"{label}: stream {b}: the streamed codes are not the non-streamed "
+                     f"call's plus its final frame")
+        joint = [np.frombuffer(tts._decode_to_pcm(c), np.int16).astype(np.int32)
+                 for c in r["codes"]]
+        if any(p.shape != j.shape for p, j in zip(r["pcm"], joint)):
+            fail(f"{label}: {[len(p) for p in r['pcm']]} samples streamed, the joint decodes "
+                 f"give {[len(j) for j in joint]}")
+        err = [int(np.abs(p - j).max()) for p, j in zip(r["pcm"], joint)]
+        if mode == "stateful" and not max(err) <= STREAM_PCM_TOL:
+            fail(f"{label}: PCM against the joint decode off by {err} int16 steps "
+                 f"(tol {STREAM_PCM_TOL})")
+        runs = [batch_stream_call(tts, B, mode) for _ in range(STREAM_RUNS)]
+        print(f"{label}: {n} frames per stream, equal to the non-streamed codes plus the final "
+              f"frame; PCM against the joint decode of each stream's codes {err} int16 steps"
+              f"{f' (tol {STREAM_PCM_TOL})' if mode == 'stateful' else ''}; time to first "
+              f"audio per stream (ms) "
+              f"{[[round(x * 1e3, 1) for x in run['ttfa']] for run in runs]}; aggregate "
+              f"{[round(sum(n) / run['wall'], 1) for run in runs]} frames/s over "
+              f"{STREAM_RUNS} calls", flush=True)
+
+
+def phase_batch(tts, name: str) -> dict:
+    """Batched synthesis on ``tts`` (``name`` its precision): ``synthesize_batch``
+    at each of BATCH_SIZES (:func:`batch_once`); at B = 4 the same codes from
+    the graph route and the eager loop, and ``synthesize_batch_stream`` in
+    both codec modes (:func:`check_batch_stream`).  Returns each B's numbers."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {B: batch_once(tts, name, B) for B in BATCH_SIZES}
+    engine = tts.engine
+    tokens = BATCH_EAGER_TOKENS[name]
+    graph = batch_codes(engine, 4, tokens)
+    with mock.patch.object(engine, "_decode", eager_route(engine)):
+        eager = batch_codes(engine, 4, tokens)
+    if not all(g.shape == e.shape and np.array_equal(g, e) for g, e in zip(graph, eager)):
+        fail(f"batch {name} B=4: the graph route's codes differ from the eager loop's")
+    print(f"batch {name} B=4: graph route and eager loop give equal codes "
+          f"({[c.shape[1] for c in graph]} frames per stream)", flush=True)
+    check_batch_stream(tts, name, 4, batch_codes(engine, 4, MAX_TOKENS))
+    print(f"batch {name}: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1555,6 +1832,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"card: torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1575,6 +1853,8 @@ def main() -> int:
     launches = phase_main(dev, args.profile)
     launches[HEADLESS] = phase_float(dev, args.profile)
 
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s from start to end, the kernels' build "
+          f"included", flush=True)
     records = []
     for name, src, replaces in KERNELS:
         row = results[name]["B=1"]

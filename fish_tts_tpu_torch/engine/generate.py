@@ -1,6 +1,6 @@
-"""Generation loop: port of ``fish_tts_tpu/engine/generate.py`` for
-single-stream generation, streamed or not, with the reference-voice KV
-prefix.
+"""Generation loop: port of ``fish_tts_tpu/engine/generate.py``:
+single-stream and batched generation, streamed or not, with the
+reference-voice KV prefix.
 
 ``GenerationEngine.generate_long`` builds the prompt, right-pads it to the
 smallest configured bucket, sizes the KV-cache allocation, runs prefill
@@ -14,8 +14,16 @@ runs.
 
 ``set_prefix`` prefills the reference blocks once into a state of the
 engine's own; a later call without references forks it (copies it into
-the call's persistent state, in place) and prefills only the target text
-at the prefix's offset.
+the call's persistent state, in place, broadcast over a batch's rows) and
+prefills only the target text at the prefix's offset.
+
+``generate_batch`` / ``generate_batch_stream`` decode several texts in
+one (B, alloc) state (``_batch_chunks``): the streams are grouped by prompt
+bucket, each group prefills into its own rows of that state in place (a
+view of the rows, so the decode graphs captured on the state see it), and
+the recombined batch decodes in grouped row order with per-stream
+sampling columns and budgets; rows go back to the caller's order on the
+host.
 
 The engine keeps one decode state per (batch, cache allocation) and resets
 it in place for each generation.  On the card every decode frame after
@@ -106,6 +114,41 @@ def start_fetch(*tensors: torch.Tensor):
     return (*out, copied)
 
 
+def to_device_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the work queued there:
+    a blocking copy from pageable memory would wait for it (an LM chunk
+    already launched, a group's prefill)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _per_stream(x, B: int, name: str, ok) -> np.ndarray:
+    """A sampling parameter as (B,) float32: one shared scalar or one value
+    per text, each in range."""
+    arr = (np.full(B, float(x), np.float32) if np.isscalar(x)
+           else np.asarray(x, np.float32))
+    if arr.shape != (B,):
+        raise ValueError(f"{name} must be a scalar or one value per text")
+    if not ok(arr).all():
+        raise ValueError(f"{name} out of range")
+    return arr
+
+
+def _rows(state: decode_mod.State, a: int, b: int) -> decode_mod.State:
+    """Views of the rows [a, b) of every tensor of ``state``: writes through
+    them land in the state's own memory."""
+    return {k: ({kk: vv[:, a:b] for kk, vv in v.items()} if k == "kv"
+                else v[:, a:b] if k == "sampling" else v[a:b])
+            for k, v in state.items()}
+
+
+def _kernels_off(on: decode_mod.Route, chosen: decode_mod.Route) -> list[str]:
+    return [name for name in ("slow_stack", "sampler", "fast")
+            if getattr(on, name) and not getattr(chosen, name)]
+
+
 class GenerationEngine:
     """Runs prefill and chunked decode from the host on the parameters' device."""
 
@@ -128,12 +171,12 @@ class GenerationEngine:
         window = ecfg.rep_penalty_window
         kernels_on = decode_mod.route(cfg, params, 1, window)
         chosen = decode_mod.route(cfg, params, 1, window, **self._options)
-        off = [name for name in ("slow_stack", "sampler", "fast")
-               if getattr(kernels_on, name) and not getattr(chosen, name)]
+        off = _kernels_off(kernels_on, chosen)
         if off:
             logger.info("sample_top_k=%d, fast_kernel=%s turn off the %s kernel(s): those "
                         "parts run on plain PyTorch", ecfg.sample_top_k, ecfg.fast_kernel,
                         ", ".join(off))
+        self._batch_gate_logged = False
         self._seeds = np.random.default_rng(seed)
         self._seeds_lock = threading.Lock()
         self.metrics = Metrics()
@@ -202,12 +245,15 @@ class GenerationEngine:
     def has_prefix(self) -> bool:
         return self._prefix_ref[0] is not None
 
-    def _fork_prefix(self, prefix: decode_mod.State, alloc: int) -> decode_mod.State:
-        """Copy a prefix snapshot into the persistent state of (1, alloc),
-        in place (a captured decode graph holds that state's addresses):
-        the KV rows below ``min(S_prefix, alloc)`` (the rest zero), then
-        every other field.  The caller passes the one snapshot it gated on."""
-        state = self._fresh_state(1, alloc)
+    def _fork_prefix(self, prefix: decode_mod.State, alloc: int,
+                     batch: int = 1) -> decode_mod.State:
+        """Copy a B = 1 prefix snapshot into every row of the persistent
+        state of (batch, alloc), in place (a captured decode graph holds
+        that state's addresses): the KV rows below ``min(S_prefix, alloc)``
+        (the rest zero), then every other field, broadcast over the rows.
+        The caller passes the one snapshot it gated on.  The JAX package's
+        ``_fork_prefix`` and ``_fork_prefix_batch`` in one."""
+        state = self._fresh_state(batch, alloc)
         self._fork_kv(prefix["kv"], state["kv"])
         for k, v in prefix.items():
             if k != "kv":
@@ -216,9 +262,10 @@ class GenerationEngine:
 
     @staticmethod
     def _fork_kv(src: dict, dst: dict) -> None:
-        """Copy a prefix KV into a zeroed allocation of another size: sliced
-        when smaller (only dead rows drop: callers size it above the prefix
-        extent), zero-padded when larger."""
+        """Copy a prefix KV into a zeroed allocation of another size and
+        batch: sliced when smaller (only dead rows drop: callers size it
+        above the prefix extent), zero-padded when larger, its one row
+        broadcast over the batch."""
         n = min(src["k"].shape[3], dst["k"].shape[3])
         for k in ("k", "v"):
             dst[k][:, :, :, :n].copy_(src[k][:, :, :, :n])
@@ -404,3 +451,220 @@ class GenerationEngine:
             codes = all_frames[:-1, 1:].T if all_frames.shape[0] > 1 else all_frames[:0, 1:].T
             codes = np.maximum(codes, 0)
             yield GenerateResponse(action="sample", codes=codes.astype(np.int64), text=text)
+
+    # -- batched generation ------------------------------------------------
+
+    def generate_batch(self, texts: list[str], *, max_new_tokens: int = 0,
+                       top_p: float | list[float] = 0.8,
+                       repetition_penalty: float | list[float] = 1.1,
+                       temperature: float | list[float] = 0.8,
+                       prompt_text: list[str] | None = None,
+                       prompt_tokens: list[np.ndarray] | None = None,
+                       use_prefix_cache: bool = True) -> list[np.ndarray]:
+        """Decode several texts in one batch (:meth:`_batch_chunks`) in large
+        chunks.  Returns one ``(num_codebooks, n_b)`` code array per text,
+        each stream's final frame stripped as in ``generate_long``."""
+        frames_all, emitted_all = [], []
+        for frames, emitted in self._batch_chunks(
+                texts, max_new_tokens=max_new_tokens, top_p=top_p,
+                repetition_penalty=repetition_penalty, temperature=temperature,
+                prompt_text=prompt_text, prompt_tokens=prompt_tokens,
+                use_prefix_cache=use_prefix_cache, chunk_frames=self._large_chunk):
+            frames_all.append(frames)
+            emitted_all.append(emitted)
+        if not frames_all:
+            return []
+        frames = np.concatenate(frames_all, axis=1)  # (B, N, 1+K)
+        emitted = np.concatenate(emitted_all, axis=1)  # (B, N)
+        out = []
+        for b in range(len(texts)):
+            fb = frames[b, emitted[b]]  # (n_b, 1+K)
+            codes = fb[:-1, 1:].T if fb.shape[0] > 1 else fb[:0, 1:].T
+            out.append(np.maximum(codes, 0).astype(np.int64))
+        return out
+
+    def generate_batch_stream(self, texts: list[str], *, max_new_tokens: int = 0,
+                              top_p: float | list[float] = 0.8,
+                              repetition_penalty: float | list[float] = 1.1,
+                              temperature: float | list[float] = 0.8,
+                              prompt_text: list[str] | None = None,
+                              prompt_tokens: list[np.ndarray] | None = None,
+                              use_prefix_cache: bool = True
+                              ) -> Iterator[list[np.ndarray | None]]:
+        """The streamed :meth:`generate_batch`: per decoded chunk, one
+        ``(num_codebooks, m_b)`` code array per stream, ``None`` for a stream
+        that emitted nothing (past its EOS or budget); each stream's EOS
+        frame included.  A chunk where no stream emitted is not yielded."""
+        for frames, emitted in self._batch_chunks(
+                texts, max_new_tokens=max_new_tokens, top_p=top_p,
+                repetition_penalty=repetition_penalty, temperature=temperature,
+                prompt_text=prompt_text, prompt_tokens=prompt_tokens,
+                use_prefix_cache=use_prefix_cache):
+            if not emitted.any():
+                continue
+            out: list[np.ndarray | None] = []
+            for b in range(len(texts)):
+                fb = frames[b, emitted[b]]  # (m_b, 1+K)
+                out.append(np.maximum(fb[:, 1:], 0).astype(np.int64).T if fb.shape[0] else None)
+            yield out
+
+    def _bucket_groups(self, lengths: np.ndarray) -> list[tuple[int, list[int]]]:
+        """The streams grouped by prompt bucket: (bucket, caller indices),
+        buckets ascending, each group in caller order."""
+        groups: dict[int, list[int]] = {}
+        for i, n in enumerate(lengths):
+            bucket = _pick_bucket(self.engine_cfg.prompt_buckets, int(n), self.cfg.max_seq_len - 1)
+            groups.setdefault(bucket, []).append(i)
+        return sorted(groups.items())
+
+    def _batch_chunks(self, texts: list[str], *, max_new_tokens: int = 0,
+                      top_p: float | list[float] = 0.8,
+                      repetition_penalty: float | list[float] = 1.1,
+                      temperature: float | list[float] = 0.8,
+                      prompt_text: list[str] | None = None,
+                      prompt_tokens: list[np.ndarray] | None = None,
+                      use_prefix_cache: bool = True, chunk_frames: int | None = None
+                      ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """The batched decode: yields ``(frames (B, n, 1+K), emitted (B, n))``
+        per chunk, rows in the caller's order.  All streams decode in the
+        persistent (B, alloc) state; each stops at its own EOS or budget,
+        and a frame after every stream is done is skipped on the device.
+
+        - With a stored prefix and no explicit references, the prefix is
+          forked into every row and only each text is prefilled.
+        - Streams are grouped by prompt bucket; each group prefills at its
+          own padded length into its rows of the state (grouped order), with
+          a noise source of its own, slots local to the group.
+        - Then one noise source for the decode, slots the grouped rows, and
+          the chunk loop, chunk k+1 launched before chunk k is read back.
+        - Sampling parameters take one shared scalar (the bit-exact
+          single-parameter path) or one value per text ((B, 1) columns).
+        - Each stream's budget is ``min(max_new_tokens, max_seq_len - its
+          prompt)``, as in its solo run; its emitted flags are clamped to it.
+        """
+        if not texts:
+            return
+        B = len(texts)
+        t_arr = _per_stream(temperature, B, "temperature", lambda a: (0 < a) & (a < 2))
+        p_arr = _per_stream(top_p, B, "top_p", lambda a: (0 < a) & (a <= 1))
+        r_arr = _per_stream(repetition_penalty, B, "repetition_penalty",
+                            lambda a: (0 < a) & (a < 2))
+        uniform = all((a == a[0]).all() for a in (t_arr, p_arr, r_arr))
+        cfg, ecfg, ids = self.cfg, self.engine_cfg, self.ids
+
+        # one snapshot: the prefix's length and the forked KV describe the
+        # same prefix even if set_prefix/clear_prefix lands mid-call
+        prefix = self._prefix_ref[0]
+        use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
+        if use_cached_prefix:
+            encs = [self._encode_suffix(t) for t in texts]
+            prefix_len = int(prefix["pos"][0])
+        else:
+            encs = [build_prompt(self.tokenizer, t, cfg.num_codebooks,
+                                 prompt_texts=prompt_text or [],
+                                 prompt_codes=prompt_tokens or []) for t in texts]
+            prefix_len = 0
+        lengths = np.array([e.values.shape[1] for e in encs], np.int64)
+        prompt_lens = prefix_len + lengths
+        reserve = min(2048, cfg.max_seq_len // 2)
+        if prompt_lens.max() > cfg.max_seq_len - reserve:
+            raise ValueError(f"Prompt is too long: {prompt_lens.max()} > "
+                             f"{cfg.max_seq_len - reserve}")
+        max_len = int(prompt_lens.max())
+        budgets = cfg.max_seq_len - prompt_lens
+        if max_new_tokens:
+            budgets = np.minimum(max_new_tokens, budgets)
+        max_new = int(budgets.max())
+
+        def columns(idxs):
+            if uniform:
+                return float(t_arr[0]), float(p_arr[0]), float(r_arr[0])
+            return tuple(to_device_async(a[idxs][:, None], self.device)
+                         for a in (t_arr, p_arr, r_arr))
+
+        W = ecfg.rep_penalty_window
+        off = _kernels_off(decode_mod.route(cfg, self.params, 1, W, **self._options),
+                           decode_mod.route(cfg, self.params, B, W, **self._options))
+        if off and not self._batch_gate_logged:
+            self._batch_gate_logged = True
+            logger.info("B=%d is past the batch limit of the %s kernel(s): those parts run "
+                        "on plain PyTorch", B, ", ".join(off))
+
+        groups = self._bucket_groups(lengths)
+        order = [i for _, idxs in groups for i in idxs]  # grouped row -> caller index
+        # the worst-case decode extent, never below a group's padded prefill
+        alloc = _cache_bucket(max(max_len + max_new + 2 * self._large_chunk,
+                                  prefix_len + groups[-1][0] + 1), cfg.max_seq_len)
+        state = (self._fork_prefix(prefix, alloc, batch=B) if use_cached_prefix
+                 else self._fresh_state(B, alloc))
+        kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
+        firsts, r0 = [], 0
+        with self.metrics.span("prefill"):
+            for bucket, idxs in groups:
+                padded = np.zeros((len(idxs), 1 + cfg.num_codebooks, bucket), np.int32)
+                for row, i in enumerate(idxs):
+                    padded[row, :, :lengths[i]] = encs[i].values
+                _, first = decode_mod.prefill(
+                    self.params, self.rope, _rows(state, r0, r0 + len(idxs)),
+                    to_device_async(padded, self.device),
+                    to_device_async(lengths[idxs].astype(np.int32), self.device),
+                    self._next_noise(), *columns(idxs), cfg=cfg, ids=ids, kv_bucket=kv_pre,
+                    **self._options)
+                firsts.append(first)
+                r0 += len(idxs)
+        # the decode's own source and the columns in grouped row order,
+        # loaded into the state the decode graphs read
+        noise, sampling = self._next_noise(), columns(order)
+        decode_mod.set_sampling(state, *sampling)
+        decode_mod.set_noise(state, noise)
+
+        inv = np.empty(B, np.int64)
+        inv[order] = np.arange(B)
+        budgets_g = budgets[order]
+        chunk = chunk_frames or ecfg.decode_chunk
+
+        def dispatch(dispatched: int):
+            n = _chunk_len(max_new - dispatched, chunk, ecfg.decode_chunk)
+            f, e = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
+                max_len + dispatched + n, ecfg.kv_bucket_step, cfg.max_seq_len)),
+                early_exit=True)
+            return (*start_fetch(f, e), n)
+
+        first_host, copied = start_fetch(torch.cat(firsts))
+        dispatched, pending = 1, None
+        if dispatched < max_new:
+            pending = dispatch(dispatched)
+            dispatched += pending[-1]
+        if copied is not None:
+            copied.synchronize()
+        first_np = first_host.numpy()  # (B, 1+K), grouped order
+        self.metrics.record_tokens(B)
+        yield first_np[inv][:, None, :], np.ones((B, 1), bool)
+
+        # done_rows lags one chunk behind: at most one chunk too many is
+        # launched, and its frames are skipped on the device
+        done_rows = (first_np[:, 0] == ids.im_end) | (budgets_g <= 1)
+        produced = 1
+        while True:
+            nxt = None
+            if dispatched < max_new and not done_rows.all():
+                nxt = dispatch(dispatched)
+                dispatched += nxt[-1]
+            if pending is None and nxt is None:
+                break
+            if pending is not None:
+                f_host, e_host, copied, n_disp = pending
+                with self.metrics.span("decode"):
+                    if copied is not None:
+                        copied.synchronize()
+                    f_np, e_np = f_host.numpy(), e_host.numpy()
+                n = min(n_disp, max_new - produced)
+                # each row clamped to its own budget: the columns past it are
+                # over-decode, run for the streams with larger budgets
+                e_np = e_np & (np.arange(n_disp)[None, :] < (budgets_g - produced)[:, None])
+                produced += n
+                done_rows = ((~e_np[:, -1]) | (f_np[:, -1, 0] == ids.im_end)
+                             | (budgets_g <= produced))
+                self.metrics.record_tokens(int(e_np[:, :n].sum()))
+                yield f_np[inv][:, :n], e_np[inv][:, :n]
+            pending = nxt

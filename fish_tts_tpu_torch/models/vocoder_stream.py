@@ -20,8 +20,15 @@ floating-point tolerance, with work proportional to the chunk.
 The state is a plain dict of tensors with the JAX package's tree: "post"
 {"k", "v" (L, B, Hkv, W, Dh), "pos" (B, W) int32, "off" (B,) int32},
 "upsample" [{"tconv", "convnext"}], "stem", "blocks" [{"up", "units"
-[{"conv1", "conv2"}] x 3}], "final".  The slot-pool functions of the JAX
-module (batched serving) are not ported yet.
+[{"conv1", "conv2"}] x 3}], "final".
+
+The slot pool (:func:`decode_chunk_pool`) decodes one chunk for every row
+of a batched state at once, for batched streaming: a row may restart its
+stream first (``reset``) or sit the round out (``active`` False: its state
+passes through and its audio lanes are garbage).  A ragged final chunk is
+zero-padded to the round's width; the decode is causal, so its first
+``m * frame_length`` samples are exact and the padded state advance is never
+read again.
 """
 
 from __future__ import annotations
@@ -239,3 +246,59 @@ def decode_chunk(params: Params, cfg: VocoderConfig, state: Params, indices):
     new_state = {"post": post, "upsample": upsample, "stem": stem, "blocks": blocks,
                  "final": final}
     return new_state, torch.tanh(x)
+
+
+# --- the slot pool ----------------------------------------------------------------
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts and lists of tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_tree_map(fn, *ts) for ts in zip(*trees)]
+    return fn(*trees)
+
+
+def _where_b(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor, bdim: int) -> torch.Tensor:
+    """Per-row select with the batch on axis ``bdim``."""
+    shape = [1] * a.ndim
+    shape[bdim] = mask.shape[0]
+    return torch.where(mask.reshape(shape), a, b)
+
+
+def _pool_merge(state: Params, other: Params, take_other: torch.Tensor) -> Params:
+    """Per-row state select: ``other``'s rows where ``take_other``.  The
+    conv tails have their batch on axis 0, the WLT's k/v on axis 1."""
+    post_s, post_o = state["post"], other["post"]
+    post = {"k": _where_b(take_other, post_o["k"], post_s["k"], 1),
+            "v": _where_b(take_other, post_o["v"], post_s["v"], 1),
+            "pos": _where_b(take_other, post_o["pos"], post_s["pos"], 0),
+            "off": torch.where(take_other, post_o["off"], post_s["off"])}
+    rest = _tree_map(lambda s, o: _where_b(take_other, o, s, 0),
+                     {k: v for k, v in state.items() if k != "post"},
+                     {k: v for k, v in other.items() if k != "post"})
+    return {"post": post, **rest}
+
+
+def pool_reset(state: Params, reset: torch.Tensor) -> Params:
+    """Restart the streams of the rows in ``reset`` (B,) bool: their state
+    back to :func:`init_decode_state`'s values."""
+    post = state["post"]
+    fresh = {"post": {"k": torch.zeros_like(post["k"]), "v": torch.zeros_like(post["v"]),
+                      "pos": torch.full_like(post["pos"], -1),
+                      "off": torch.zeros_like(post["off"])},
+             **_tree_map(torch.zeros_like, {k: v for k, v in state.items() if k != "post"})}
+    return _pool_merge(state, fresh, reset)
+
+
+@torch.no_grad()
+def decode_chunk_pool(params: Params, cfg: VocoderConfig, state: Params, indices,
+                      active: torch.Tensor, reset: torch.Tensor):
+    """One slot-pool round: ``indices`` (B, 1+R, T), any codes in inactive
+    rows; ``active`` (B,) bool rows that advance; ``reset`` (B,) bool rows
+    that restart their stream first.  Returns (new state, audio (B, 1,
+    T*frame_length)); an active row's audio continues its stream."""
+    base = pool_reset(state, reset)
+    new_state, audio = decode_chunk(params, cfg, base, indices)
+    return _pool_merge(base, new_state, active), audio

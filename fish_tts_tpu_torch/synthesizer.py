@@ -1,13 +1,15 @@
-"""The public API: ``FishTTS.synthesize(text) -> WAV bytes`` and
-``FishTTS.synthesize_stream(text) -> int16 PCM chunks`` on the card.
+"""The public API: ``FishTTS.synthesize(text) -> WAV bytes``,
+``FishTTS.synthesize_stream(text) -> int16 PCM chunks`` and their batched
+forms ``synthesize_batch(texts)`` / ``synthesize_batch_stream(texts)`` on
+the card.
 
-Port of the single-stream surface of ``fish_tts_tpu/synthesizer.py``:
-``FishTTS`` (from a native model directory or a testing bundle, precision
-``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), ``synthesize`` and
-``synthesize_stream`` with ``references=`` per call or the stored ones
-(``set_references`` and friends: prefilled once into the engine's KV
-prefix), the engine's ``metrics`` and ``get_metrics()``, ``VoiceProfile``
-and the ``get_instance``/``reset_instance`` singleton.
+Port of ``fish_tts_tpu/synthesizer.py`` without long text and the codec
+encoder: ``FishTTS`` (from a native model directory or a testing bundle,
+precision ``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), single and
+batched synthesis, streamed or not, with ``references=`` per call or the
+stored ones (``set_references`` and friends: prefilled once into the
+engine's KV prefix), the engine's ``metrics`` and ``get_metrics()``,
+``VoiceProfile`` and the ``get_instance``/``reset_instance`` singleton.
 A float precision casts the LM and the codec to that dtype (the KV cache
 follows); ``int8`` keeps bf16 activations and codec with weight-only int8
 LM matmuls, the route of the three kernels.
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from fish_tts_tpu_torch.config import DualARConfig, EngineConfig, VocoderConfig
-from fish_tts_tpu_torch.engine.generate import GenerationEngine, start_fetch
+from fish_tts_tpu_torch.engine.generate import GenerationEngine, start_fetch, to_device_async
 from fish_tts_tpu_torch.models import vocoder, vocoder_stream
 from fish_tts_tpu_torch.models.dual_ar import cast_params
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
@@ -93,16 +95,6 @@ class VoiceProfile:
         return cls(codes=np.load(path), text=text, name=name or Path(path).stem)
 
 
-def _codes_to_device(codes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Codes to the device without waiting for the work queued before them:
-    a blocking copy from pageable memory would wait for the LM chunk
-    already launched."""
-    t = torch.from_numpy(np.ascontiguousarray(codes))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 class _StreamVocoder:
     """One audio stream's stateful codec decode (``models/vocoder_stream``):
     each chunk decodes only its own frames from the carried state, and the
@@ -120,8 +112,48 @@ class _StreamVocoder:
         tts = self._tts
         self._state, audio = vocoder_stream.decode_chunk(
             tts._vocoder_params, tts._vocoder_cfg, self._state,
-            _codes_to_device(codes[None], tts.device))
+            to_device_async(codes[None], tts.device))
         return start_fetch(audio.float()), codes.shape[-1]
+
+
+class _PoolStreamBatch:
+    """The stateful codec of ``synthesize_batch_stream``: one batched state
+    (``vocoder_stream.decode_chunk_pool``), one decode per round for every
+    stream that flushes and one fetch of its int16 PCM.
+
+    The batched generator keeps live streams in step (the same frames per
+    round, the same flush thresholds), so all flushes of a round but a
+    stream's final one share one width; a final flush is zero-padded to the
+    round's width (the decode is causal, so its emitted samples are exact)
+    and no flush of that stream may follow it."""
+
+    def __init__(self, tts: "FishTTS", batch: int):
+        if tts._vocoder_params is None:
+            raise RuntimeError("Vocoder not loaded")
+        self._tts = tts
+        self._B = batch
+        init, self._dec = tts._pool_vocoder_fns(batch)
+        self._state = init(tts._vocoder_params)
+        self._finished: set[int] = set()
+
+    def decode_round(self, entries: list[tuple[int, np.ndarray]]):
+        """Enqueue the decode of [(stream, (K, m) codes), ...] and the copy of
+        its int16 PCM to the host: (host PCM (B, 1, samples), the copy's CUDA
+        event, None on the CPU)."""
+        W = max(c.shape[1] for _, c in entries)
+        codes = np.zeros((self._B, entries[0][1].shape[0], W), np.int32)
+        active = np.zeros((self._B,), bool)
+        for b, c in entries:
+            assert b not in self._finished, "flush after final (padded) flush"
+            if c.shape[1] < W:
+                self._finished.add(b)
+            codes[b, :, :c.shape[1]] = c
+            active[b] = True
+        dev = self._tts.device
+        self._state, pcm = self._dec(self._tts._vocoder_params, self._state,
+                                     to_device_async(codes, dev), to_device_async(active, dev),
+                                     torch.zeros((self._B,), dtype=torch.bool, device=dev))
+        return start_fetch(pcm)
 
 
 class _ContextBuffer:
@@ -314,6 +346,109 @@ class FishTTS:
             raise RuntimeError("No audio generated")
         return self._decode_to_wav(np.concatenate(codes_list, axis=1))
 
+    def synthesize_batch(self, texts: list[str], references: list[VoiceProfile] | None = None,
+                         temperature: float | list[float] = 0.7,
+                         top_p: float | list[float] = 0.8,
+                         repetition_penalty: float | list[float] = 1.1,
+                         max_tokens: int = 2048) -> list[bytes]:
+        """Synthesize several texts in one batch: one model pass per frame
+        serves every stream, then each is decoded by the codec.  Returns one
+        WAV per text; a stream that emitted nothing gets a header-only WAV.
+        Sampling parameters take one shared value or one per text."""
+        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
+        codes_list = self._engine.generate_batch(
+            texts, max_new_tokens=max_tokens, temperature=temperature, top_p=top_p,
+            repetition_penalty=repetition_penalty, prompt_text=prompt_text,
+            prompt_tokens=prompt_tokens, use_prefix_cache=use_prefix)
+        if not codes_list:
+            return []
+        if all(c.shape[1] == 0 for c in codes_list):
+            raise RuntimeError("No audio generated")
+        # a stream that stopped on its prefill frame keeps the others' audio
+        return [self._decode_to_wav(c) if c.shape[1] else
+                to_wav_bytes(np.zeros(0, np.float32), self.sample_rate) for c in codes_list]
+
+    def synthesize_batch_stream(self, texts: list[str],
+                                references: list[VoiceProfile] | None = None,
+                                chunk_tokens: int = 20, min_first_chunk: int = 10,
+                                context_frames: int = 32,
+                                temperature: float | list[float] = 0.7,
+                                top_p: float | list[float] = 0.8,
+                                repetition_penalty: float | list[float] = 1.1,
+                                max_tokens: int = 2048,
+                                vocoder_mode: Literal["stateful", "context"] = "stateful"
+                                ) -> Iterator[list[bytes | None]]:
+        """Streaming batched synthesis: all texts decode in one batch, and
+        each item yielded is a list of one int16 PCM chunk per text (None
+        where that stream did not flush this round).  Each stream flushes at
+        ``min_first_chunk`` frames, then every ``chunk_tokens``, then the
+        rest, as :meth:`synthesize_stream`.  ``"stateful"`` decodes every
+        flushing stream's chunk in one pool decode per round (``_PoolStreamBatch``),
+        ``"context"`` each with ``context_frames`` of history, all enqueued
+        before any is read back."""
+        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
+        B = len(texts)
+        bufs: list[list[np.ndarray]] = [[] for _ in range(B)]
+        totals = [0] * B
+        firsts = [True] * B
+
+        def take(b: int) -> np.ndarray:
+            codes = np.concatenate(bufs[b], axis=1)
+            bufs[b], totals[b] = [], 0
+            return codes
+
+        if vocoder_mode == "stateful":
+            pool = _PoolStreamBatch(self, B)
+
+            def flush(b):
+                return b, take(b)  # decoded with the round's other flushes
+
+            def emit(handles):
+                entries = [h for h in handles if h is not None]
+                pcm, copied = pool.decode_round(entries)
+                with self._engine.metrics.span("vocoder"):
+                    if copied is not None:
+                        copied.synchronize()
+                    pcm = pcm.numpy()  # (B, 1, samples) int16, one fetch
+                fl = self._vocoder_cfg.frame_length
+                out: list[bytes | None] = [None] * B
+                for b, c in entries:
+                    out[b] = pcm[b, 0, :c.shape[1] * fl].tobytes()
+                return out
+        elif vocoder_mode == "context":
+            ctxs = [_ContextBuffer(context_frames) for _ in range(B)]
+
+            def flush(b):
+                codes, ctx = ctxs[b].take(take(b))
+                handle, n = self._decode_codes_async(codes)
+                return handle, n - ctx, ctx
+
+            def emit(handles):
+                # every flushing stream's decode is enqueued before any is read
+                return [self._force_pcm(*h) if h is not None else None for h in handles]
+        else:
+            raise ValueError(f"vocoder_mode must be 'stateful' or 'context', not "
+                             f"{vocoder_mode!r}")
+
+        for chunk in self._engine.generate_batch_stream(
+                texts, max_new_tokens=max_tokens, temperature=temperature, top_p=top_p,
+                repetition_penalty=repetition_penalty, prompt_text=prompt_text,
+                prompt_tokens=prompt_tokens, use_prefix_cache=use_prefix):
+            handles: list = [None] * B
+            for b, codes in enumerate(chunk):
+                if codes is None:
+                    continue
+                bufs[b].append(codes)
+                totals[b] += codes.shape[1]
+                if totals[b] >= (min_first_chunk if firsts[b] else chunk_tokens):
+                    handles[b] = flush(b)
+                    firsts[b] = False
+            if any(h is not None for h in handles):
+                yield emit(handles)
+        handles = [flush(b) if bufs[b] else None for b in range(B)]
+        if any(h is not None for h in handles):
+            yield emit(handles)
+
     def synthesize_stream(self, text: str, references: list[VoiceProfile] | None = None,
                           chunk_tokens: int = 20, min_first_chunk: int = 10,
                           context_frames: int = 32, temperature: float = 0.7,
@@ -398,8 +533,27 @@ class FishTTS:
         padded = np.zeros((1, codes.shape[0], _vocoder_bucket(n)), np.int64)
         padded[0, :, :n] = codes
         audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
-                                   _codes_to_device(padded, self.device))
+                                   to_device_async(padded, self.device))
         return start_fetch(audio.float()), n
+
+    def _pool_vocoder_fns(self, batch: int):
+        """The slot pool's (init, decode) pair at ``batch`` rows: ``init(params)``
+        a fresh batched state, ``decode(params, state, codes, active, reset)``
+        one ``decode_chunk_pool`` round returning (state, int16 PCM (B, 1,
+        samples)) made on the device, bit-exact to ``to_pcm_bytes`` of the
+        float audio: the codec ends in tanh, so ``x * 32767`` stays inside
+        int16, and the conversion truncates toward zero as numpy's does."""
+        cfg = self._vocoder_cfg
+
+        def init(params):
+            return vocoder_stream.init_decode_state(params, cfg, batch=batch)
+
+        def decode(params, state, codes, active, reset):
+            state, audio = vocoder_stream.decode_chunk_pool(params, cfg, state, codes, active,
+                                                            reset)
+            return state, (audio.float() * 32767).to(torch.int16)
+
+        return init, decode
 
     @staticmethod
     def _read_audio(handle) -> np.ndarray:

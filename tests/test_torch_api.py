@@ -32,6 +32,7 @@ from fish_tts_tpu_torch.engine import generate as tgenerate
 from fish_tts_tpu_torch.models import dual_ar as tdual
 from fish_tts_tpu_torch.testing import make_tiny_bundle as ttiny_bundle
 from fish_tts_tpu_torch.utils import checkpoint as tckpt
+from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 

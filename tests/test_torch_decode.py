@@ -34,6 +34,7 @@ from fish_tts_tpu_torch.engine import decode as tdecode
 from fish_tts_tpu_torch.models import dual_ar as tdual
 from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 from fish_tts_tpu_torch.utils import checkpoint as tckpt
+from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 CFG = TINY_CONFIG
 TEXTS = ("Hello world, this is a test.", "A second, shorter one.")

@@ -50,6 +50,7 @@ from fish_tts_tpu_torch.engine import decode as tdecode
 from fish_tts_tpu_torch.engine import sampling as tsampling
 from fish_tts_tpu_torch.models import dual_ar as tdual
 from fish_tts_tpu_torch.utils import checkpoint as tckpt
+from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 TEXTS = ("Hello world, this is a test.", "A second, shorter one.")
 SAMPLING = (0.7, 0.8, 1.1)

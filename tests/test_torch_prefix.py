@@ -27,6 +27,7 @@ from fish_tts_tpu_torch.engine.generate import GenerationEngine
 from fish_tts_tpu_torch.models.prompt import build_prompt
 from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
 from test_torch_stream import SAMPLING, generate_both, hold_codes, make_engines
+from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 KV_TOL = 1e-5
 TEXT = "Cloned voice."

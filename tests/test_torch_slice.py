@@ -47,6 +47,7 @@ from fish_tts_tpu_torch.models.prompt import build_prompt as tbuild_prompt
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer as TTokenizer
 from fish_tts_tpu_torch.testing import make_tiny_bundle
 from fish_tts_tpu_torch.utils import checkpoint as tckpt
+from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 CFG = TINY_CONFIG
 TEXT = "Hello world, this is a test."

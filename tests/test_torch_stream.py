@@ -57,6 +57,18 @@ SAMPLING = (0.7, 0.8, 1.1)
 TEXT = "Stream this sentence, please."
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module that uses this fixture: its tiny
+    shapes gain nothing from more, and the suite runs several workers on
+    the same cores, where threads that outnumber the cores slow every small
+    op several times over.  Test modules of the port import it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def loud_vocoder(seed: int = 1):
     """The tiny codec with every leaf jittered by 0.05 (the initializer's
     zero biases and small weights give near-silent audio): (port tree, the
