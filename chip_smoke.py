@@ -104,11 +104,41 @@ printing its own lines; any failure raises and the script exits non-zero:
    stateful pool's PCM within STREAM_PCM_TOL of each stream's joint
    decode; each stream's time to first audio.
 
+9. serve (on the int8 instance after its batch phase, then on the bf16 one):
+   ``tts.serve(slots=...)`` warmed up, then requests submitted in waves
+   into the running pool (SERVE_CASES: int8 16 requests in 4 waves over 8
+   slots, budgets 40-130; bf16 6 over 4 slots), TEXT and SHORT_TEXT in
+   turns, each with its own seed and sampling, one with the 661-frame
+   profile as its references (admitted in the same round as requests of
+   other prompt buckets), one with priority 1, one cancelled at its first audio.  Each kernel
+   launches once per pool decode frame, the sampler and the fast decoder
+   also once per admitted request's prefill, and every decode frame is a
+   graph replay; every graph captured mid-serving leaves the pool's state
+   and the chunk in flight as they were.  Each request's codes equal its
+   codes served alone in a pool of the same slots, on every route, and its
+   solo B = 1 run's or differ first at a knife edge of the solo run's
+   numbers (both repeated on the eager loop with every decision recorded,
+   ``DecisionLog``); its PCM has frames x 2048 samples within
+   STREAM_PCM_TOL of the joint decode; the cancelled request gets no event
+   after its cancel.  Prints aggregate frames/s, ``stats()`` of the waved
+   requests (time to first frames and queue wait, p50/p95, read before any
+   other request runs), device ms per round, graph captures and
+   their time, the allocations and peak device memory.  Then on the int8
+   instance ``serving.http.make_server`` on loopback: two concurrent
+   ``POST /synthesize`` (L16 and WAV) equal to a ``ServeSession``'s PCM,
+   ``POST /v1/audio/speech``, ``GET /stats`` and ``/metrics``, ``PUT
+   /voices`` answering 501, and the driver and server stopped.
+
 Then the whole run's wall time, one JSON line of per-kernel records
-(main-path shapes, B = 1; the sampler on bf16-rounded logits) and, last,
-``{"ok": true, "device": {...}}``; the head-less slow stack's launches are
-those of the untied-head call.  Without a CUDA device, or without the
-package beside this file, it exits non-zero and prints no result.
+(main-path shapes, B = 1; the sampler on bf16-rounded logits; ``launches``
+those of the first int8 ``synthesize`` call, the head-less slow stack's
+those of the untied-head call, each read from counts set to 0 just before
+it; ``launches_by_path`` each path's launches summed over its checked runs
+in phases 5-9, each run read from its own zeroed counts: main (every
+``synthesize`` call of phases 5 and 6), stream, batch and serve (int8 and
+bf16)) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the package beside this file, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -118,6 +148,7 @@ import dataclasses
 import io
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -176,6 +207,9 @@ SLOW_CASES = [
 ]
 SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by phase
 HEADLESS = "slow_stack_step (no head)"  # the slow-stack kernel for an untied head
+# each path's launches per kernel, summed over its checked runs (each read
+# from counts set to 0 just before that run): main, stream, batch, serve
+PATH_LAUNCHES: dict[str, dict[str, int]] = {}
 # The batch phase: B streams, alternately TEXT (the 128-token prompt bucket)
 # and SHORT_TEXT (the 64-token one); per-stream sampling parameters.
 BATCH_SIZES = (1, 4, 8, 16)
@@ -1029,6 +1063,8 @@ def phase_main(dev, profile_dir=None):
         sampler_on_path(tts)
     phase_stream(tts, seen, "int8")
     phase_batch(tts, "int8")
+    phase_serve(tts, "int8")
+    phase_http(tts)
     return launches
 
 
@@ -1164,33 +1200,58 @@ def zero_counts() -> None:
 
     for m in (sampler_kernel, slow_stack, fast_decoder):
         m.launches = 0
+    slow_stack.headless_launches = 0
     decode.graph_replays = decode.eager_frames = 0
 
 
-def route_counts(engine, label: str, min_replays: int, batch: int = 1, prefills: int = 1):
+def kernel_counts() -> dict[str, int]:
+    """Every kernel's launch count since :func:`zero_counts`."""
+    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
+
+    return {"sample_slow": sampler_kernel.launches, "slow_stack_step": slow_stack.launches,
+            HEADLESS: slow_stack.headless_launches, "fast_decode_frame": fast_decoder.launches}
+
+
+def stack_counts(cfg, frames: int) -> dict[str, int]:
+    """The slow-stack launches of ``frames`` frames on its kernel: the tied
+    head's variant or the head-less one."""
+    tied = cfg.tie_word_embeddings
+    return {"slow_stack_step": frames if tied else 0, HEADLESS: 0 if tied else frames}
+
+
+def tally(path: str, launches: dict[str, int]) -> None:
+    """Add a checked run's launches to its path's sums (PATH_LAUNCHES)."""
+    sums = PATH_LAUNCHES.setdefault(path, dict.fromkeys(launches, 0))
+    for name, n in launches.items():
+        sums[name] += n
+
+
+def route_counts(engine, label: str, min_replays: int, path: str, batch: int = 1,
+                 prefills: int = 1):
     """The launch counts since :func:`zero_counts`, which must be what the
     call's route at ``batch`` streams implies (``decode.route``: a kernel on
     it launches once per frame for the whole batch, the sampler and the fast
     decoder also once per prefill, of which a batch makes one per prompt
-    bucket, ``prefills``; the slow stack only in decode; a kernel off it not
-    at all), with every decode frame, at least ``min_replays``, replayed
-    from a captured graph.  Returns (launches, replays, the route)."""
+    bucket, ``prefills``; the slow stack only in decode, its head-less
+    variant for an untied head; a kernel off it not at all), with every
+    decode frame, at least ``min_replays``, replayed from a captured graph.
+    The counts go to ``path``'s sums.  Returns (launches, replays, the
+    route)."""
     from fish_tts_tpu_torch.engine import decode
-    from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
-    launches = {"sample_slow": sampler_kernel.launches, "slow_stack_step": slow_stack.launches,
-                "fast_decode_frame": fast_decoder.launches}
+    launches = kernel_counts()
     replays, eager = decode.graph_replays, decode.eager_frames
     rt = decode.route(engine.cfg, engine.params, batch, engine.engine_cfg.rep_penalty_window,
                       **engine._options)
     decoded = replays + eager
     want = {"sample_slow": rt.sampler * (prefills + decoded),
-            "slow_stack_step": rt.slow_stack * decoded,
+            **stack_counts(engine.cfg, rt.slow_stack * decoded),
             "fast_decode_frame": rt.fast * (prefills + decoded)}
     if launches != want or not any(want.values()):
         fail(f"{label}: kernel launches {launches}, the route implies {want}")
     if replays < min_replays or eager:
         fail(f"{label}: {replays} graph replays and {eager} eager decode frames")
+    tally(path, launches)
     return launches, replays, rt
 
 
@@ -1211,7 +1272,7 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
     wall = time.perf_counter() - t
     codes, audio = seen["codes"], seen["audio"]
     seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
-    launches, replays, rt = route_counts(tts.engine, f"main: {label}", frames - 2)
+    launches, replays, rt = route_counts(tts.engine, f"main: {label}", frames - 2, "main")
 
     hop = tts._vocoder_cfg.frame_length
     with wave.open(io.BytesIO(wav)) as w:
@@ -1305,6 +1366,7 @@ def phase_float(dev, profile_dir=None) -> int:
                            max_tokens=FLOAT_PROFILE_TOKENS, name="bf16_synthesize")
     phase_stream(tts, seen, "bf16")
     phase_batch(tts, "bf16")
+    phase_serve(tts, "bf16")
     del tts, seen, e
     torch.cuda.empty_cache()
 
@@ -1330,7 +1392,7 @@ def phase_float(dev, profile_dir=None) -> int:
         tts = build(label, precision, c, p, engine_config)
         launches = synthesize_once(tts, observe(tts), label)
         if c is untied:
-            headless = launches["slow_stack_step"]
+            headless = launches[HEADLESS]
         del tts, p
         torch.cuda.empty_cache()
     return headless
@@ -1459,7 +1521,7 @@ def check_stream(tts, label: str, references, mode: str) -> dict:
     zero_counts()
     r = stream_call(tts, references, mode)
     n = r["codes"].shape[1]
-    launches, replays, _ = route_counts(tts.engine, f"stream: {label}", n - 1)
+    launches, replays, _ = route_counts(tts.engine, f"stream: {label}", n - 1, "stream")
     if any(len(c) % (2 * hop) for c in r["chunks"]):
         fail(f"stream: {label}: a chunk of {[len(c) for c in r['chunks']]} bytes is not whole "
              f"frames")
@@ -1669,7 +1731,7 @@ def batch_once(tts, name: str, B: int) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     frames = [c.shape[1] + 1 for c in rec["codes"]]  # generate_batch strips the final frame
     groups = prompt_groups(engine, texts)
-    launches, replays, rt = route_counts(engine, label, max(frames) - 1, batch=B,
+    launches, replays, rt = route_counts(engine, label, max(frames) - 1, "batch", batch=B,
                                          prefills=groups)
     hop = tts._vocoder_cfg.frame_length
     samples = 0
@@ -1758,7 +1820,7 @@ def check_batch_stream(tts, name: str, B: int, batch) -> None:
         zero_counts()
         r = batch_stream_call(tts, B, mode)
         n = [c.shape[1] for c in r["codes"]]
-        route_counts(tts.engine, label, max(n) - 1, batch=B, prefills=groups)
+        route_counts(tts.engine, label, max(n) - 1, "batch", batch=B, prefills=groups)
         for b in range(B):
             sizes = [len(c) // (2 * hop) for c in r["chunks"][b]]
             if (any(len(c) % (2 * hop) for c in r["chunks"][b]) or sum(sizes) != n[b]
@@ -1808,6 +1870,573 @@ def phase_batch(tts, name: str) -> dict:
     check_batch_stream(tts, name, 4, batch_codes(engine, 4, MAX_TOKENS))
     print(f"batch {name}: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# --- phase 9: continuous-batching serving ------------------------------------------
+
+
+SERVE_BUDGETS = (40, 70, 100, 130)  # max_new_tokens, cycled over the requests
+# (precision, slots, requests, waves, budgets): waves of requests, one wave
+# after every second round of the pool
+SERVE_CASES = {"int8": (8, 16, 4, SERVE_BUDGETS), "bf16": (4, 6, 2, (20, 30, 40))}
+SERVE_REF, SERVE_PRIORITY, SERVE_CANCEL = 5, 9, 2  # request indices (the ref one's group mixes)
+SERVE_MAX_ROUNDS = 500
+
+
+def serve_requests(n: int, budgets, profile) -> list[tuple[str, dict]]:
+    """n requests: TEXT and SHORT_TEXT in turns, budgets cycled, a seed and
+    sampling parameters of each one's own; request SERVE_REF carries the
+    661-frame profile as its references, request SERVE_PRIORITY priority 1."""
+    out = []
+    for i in range(n):
+        kw = dict(max_new_tokens=budgets[i % len(budgets)], seed=SEED + 100 + i,
+                  temperature=0.6 + 0.05 * (i % 4), top_p=0.7 + 0.05 * (i % 5),
+                  repetition_penalty=1.0 + 0.05 * (i % 3))
+        if i == SERVE_REF:
+            kw["references"] = [profile]
+        if i == SERVE_PRIORITY:
+            kw["priority"] = 1
+        out.append((TEXT if i % 2 == 0 else SHORT_TEXT, kw))
+    return out
+
+
+class ServeRecorder:
+    """Wraps a session: the codes of every LM event by request, the batch
+    size of every admission prefill, CUDA events around every round (LM
+    chunk, admissions and codec), and a check of every graph capture made
+    while it serves (the pool's state and the chunk in flight must come out
+    of it untouched)."""
+
+    def __init__(self, sess):
+        import torch
+
+        from fish_tts_tpu_torch.engine import decode
+
+        self.codes: dict[int, list] = {}
+        self.prefills: list[int] = []
+        self.rounds: list[tuple] = []
+        self.captures: list[float] = []
+        srv, rec = sess._srv, self
+        lm_step, step = srv.step, sess.step
+        prefill, graph_cls = decode.prefill, decode.DecodeGraph
+
+        def recorded_lm_step():
+            events = lm_step()
+            for ev in events:
+                rec.codes.setdefault(ev.request_id, []).append(ev.codes)
+            return events
+
+        def timed_step():  # a whole round: LM chunk, admissions and codec
+            with srv.on_stream():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                events = step()
+                b.record()
+            rec.rounds.append((a, b))
+            return events
+
+        def counted_prefill(params, rope, state, *a, **k):
+            rec.prefills.append(state["frame"].shape[0])
+            return prefill(params, rope, state, *a, **k)
+
+        class CheckedGraph(graph_cls):
+            def __init__(self, params, cfg, ids, rope, state, **kw):
+                before = [t.clone() for t in decode._tensors(state)]
+                pending = srv._pending
+                if pending is not None and pending[2] is not None:
+                    pending[2].synchronize()
+                held = None if pending is None else (pending[0].clone(), pending[1].clone())
+                t = time.perf_counter()
+                super().__init__(params, cfg, ids, rope, state, **kw)
+                torch.cuda.synchronize()
+                rec.captures.append(time.perf_counter() - t)
+                if not all(torch.equal(x, y) for x, y in zip(before, decode._tensors(state))):
+                    fail("serve: a graph capture mid-serving changed the pool's state")
+                if held is not None and not (torch.equal(held[0], pending[0])
+                                             and torch.equal(held[1], pending[1])):
+                    fail("serve: a graph capture mid-serving changed the chunk in flight")
+
+        srv.step, sess.step = recorded_lm_step, timed_step
+        self._unwrap = lambda: (vars(srv).pop("step"), vars(sess).pop("step"))
+        self._patches = [mock.patch.object(decode, "prefill", counted_prefill),
+                         mock.patch.object(decode, "DecodeGraph", CheckedGraph)]
+        for p in self._patches:
+            p.start()
+
+    def stop(self) -> None:
+        self._unwrap()
+        for p in self._patches:
+            p.stop()
+
+    def round_ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.rounds]
+
+
+def drive_serve(sess, reqs, waves: int, cancel: int | None):
+    """Submit ``reqs`` in ``waves`` equal waves, one after every second
+    round, and run the session to its end; request ``cancel`` is cancelled
+    at its first audio.  Returns (ids, {id: [events]}, the wall time, the
+    time of each id's first audio from its submission, the round of the
+    cancel)."""
+    per = len(reqs) // waves
+    ids, events, first, t_sub = [], {}, {}, {}
+    cancelled_at, rounds = None, 0
+
+    def submit_wave(w):
+        for text, kw in reqs[w * per:(w + 1) * per]:
+            rid = sess.submit(text, **kw)
+            ids.append(rid)
+            t_sub[rid] = time.perf_counter()
+            events[rid] = []
+
+    t0 = time.perf_counter()
+    submit_wave(0)
+    while sess.busy or len(ids) < len(reqs):
+        if rounds > SERVE_MAX_ROUNDS:
+            fail(f"serve: the session did not drain in {SERVE_MAX_ROUNDS} rounds")
+        if rounds and rounds % 2 == 0 and len(ids) < len(reqs):
+            submit_wave(len(ids) // per)
+        for ev in sess.step():
+            if cancelled_at is not None and ev.request_id == ids[cancel]:
+                fail(f"serve: an event for request {cancel} after its cancel")
+            events[ev.request_id].append(ev)
+            if ev.pcm and ev.request_id not in first:
+                first[ev.request_id] = time.perf_counter() - t_sub[ev.request_id]
+            if (cancel is not None and cancelled_at is None and len(ids) > cancel
+                    and ev.request_id == ids[cancel] and ev.pcm):
+                sess.cancel(ev.request_id)
+                cancelled_at = rounds
+        rounds += 1
+    return ids, events, time.perf_counter() - t0, first, cancelled_at
+
+
+def served_alone(sess, text, kw) -> "np.ndarray":
+    """One request served alone in ``sess``'s pool: its LM codes."""
+    import numpy as np
+
+    codes = []
+    srv = sess._srv
+    step = srv.step
+
+    def rec_step():
+        events = step()
+        codes.extend(ev.codes for ev in events if ev.request_id == rid)
+        return events
+
+    srv.step = rec_step
+    try:
+        rid = sess.submit(text, **kw)
+        for _ in sess.run():
+            pass
+    finally:
+        srv.step = step
+    return np.concatenate(codes, axis=1)
+
+
+def solo_codes(tts, text, kw) -> "np.ndarray":
+    """The request's solo run: ``reseed(seed)`` and a streamed
+    ``generate_long`` with its sampling and references."""
+    import numpy as np
+
+    engine = tts.engine
+    refs = kw.get("references") or []
+    engine.reseed(kw["seed"])
+    chunks = [r.codes for r in engine.generate_long(
+        text, max_new_tokens=kw["max_new_tokens"], temperature=kw["temperature"],
+        top_p=kw["top_p"], repetition_penalty=kw["repetition_penalty"],
+        prompt_text=[p.text for p in refs], prompt_tokens=[np.asarray(p.codes) for p in refs],
+        streaming=True, use_prefix_cache=False) if r.action == "sample"]
+    return np.concatenate(chunks, axis=1)
+
+
+class DecisionLog:
+    """Every sampling decision of the runs made under :meth:`recording`, by
+    (noise key, frame): a request's rows carry its own noise key in any run
+    (pool, alone or solo), and its frame is its slot's step + 1 (0 for its
+    prefill).  Each entry holds "slow", the sampler kernel's (logits,
+    prev_col, gumbel, temperature, top_p, penalty, token); "fast", the fast
+    decoder's (codes, logits, gumbel, temperature, top_p); "plain", the plain
+    route's decisions in order, each (penalized logits, gumbel, temperature,
+    top_p, code, top_k).  The first frame recorded under a key and frame
+    wins (a done row repeats its step)."""
+
+    def __init__(self):
+        self.at: dict[tuple, dict] = {}
+        self._rows: list[dict] = []
+
+    def recording(self):
+        from contextlib import ExitStack
+
+        from fish_tts_tpu_torch.engine import decode, sampling
+        from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel
+
+        draw, slow_k = decode._draw, sampler_kernel.sample_slow
+        fast_k, plain = fast_decoder.fast_decode_frame, decode.sample
+        log = self
+
+        def rec_draw(cfg, state, noise, step, draws):
+            log._rows = []
+            for k, st in zip(state["noise_key"].tolist(), step.tolist()):
+                entry = {"plain": []}
+                log.at.setdefault((k, 0 if st == decode.PREFILL_STEP else st + 1), entry)
+                log._rows.append(entry)
+            return draw(cfg, state, noise, step, draws)
+
+        def rows(*xs):
+            return [tuple(x[b:b + 1].clone() for x in xs) for b in range(len(log._rows))]
+
+        def rec_slow(logits, prev_col, g, t, p, r, skip=None):
+            token = slow_k(logits, prev_col, g, t, p, r, skip)
+            for e, row in zip(log._rows, rows(logits, prev_col, g, t, p, r, token)):
+                e["slow"] = row
+            return token
+
+        def rec_fast(params, cfg, rope, h, a0, prev, g, t, p, r, **kw):
+            codes, logits = fast_k(params, cfg, rope, h, a0, prev, g, t, p, r, **kw)
+            for e, row in zip(log._rows, rows(codes, logits, g, t, p)):
+                e["fast"] = row
+            return codes, logits
+
+        def rec_plain(g, logits, t, p, r, prev_idx=None, top_k=0, approx=False):
+            code = plain(g, logits, t, p, r, prev_idx, top_k=top_k, approx=approx)
+            pen = logits.float()
+            if prev_idx is not None:
+                pen = sampling.apply_repetition_penalty(pen, prev_idx, r)
+            for e, row in zip(log._rows, rows(pen, g, t, p, code)):
+                e["plain"].append(row + (top_k,))
+            return code
+
+        stack = ExitStack()
+        for obj, name, fn in ((decode, "_draw", rec_draw), (sampler_kernel, "sample_slow", rec_slow),
+                              (fast_decoder, "fast_decode_frame", rec_fast),
+                              (decode, "sample", rec_plain)):
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        return stack
+
+
+def eager_session(tts, slots: int):
+    """A session of ``slots`` whose pool decodes on the eager loop."""
+    from fish_tts_tpu_torch.engine import decode
+
+    sess = tts.serve(slots=slots, warmup=False)
+    srv, engine = sess._srv, tts.engine
+
+    def eager_pool(kv_b):
+        _, frames, emitted = decode.decode_chunk(
+            engine.params, engine.rope, srv._state, None, *srv._state["sampling"],
+            cfg=engine.cfg, ids=engine.ids, num_frames=srv.chunk, kv_bucket=kv_b,
+            early_exit=True, **engine._options)
+        return frames, emitted
+
+    srv._decode = eager_pool
+    return sess
+
+
+def first_decision(entry: dict) -> list:
+    """A frame's picks from its log entry, in frame order: the slow token,
+    then each residual book."""
+    picks = [int(entry["slow"][6][0])] if "slow" in entry else []
+    if "fast" in entry:
+        picks += entry["fast"][0][0].tolist()
+    return picks + [int(p[4][0]) for p in entry["plain"]]
+
+
+def knife_edge(got_log, ref_log, key: int, got, ref, label: str) -> int:
+    """The first decision where the run logged in ``got_log`` (codes
+    ``got``) of the request with noise key ``key`` differs from the
+    reference run (``ref_log``, codes ``ref``), held as a knife edge of the
+    reference's own numbers: the two runs' logits there lie within
+    STACK_TOL of the reference's largest (a whole 28-layer call's
+    tolerance), the other inputs are equal, and the reference's decision
+    lies within the logits' difference of its boundary
+    (``testing.sample_decision_margins`` for the slow token and a plain
+    route's book, ``testing.fast_decision_margins`` for the fast
+    decoder's).  The slow token is compared itself, not the code ``a``
+    clamped from it.  Returns the frame."""
+    import torch
+
+    from fish_tts_tpu_torch.testing import fast_decision_margins, sample_decision_margins
+
+    n = min(got.shape[1], ref.shape[1])
+    f = row = None
+    for f in range(n):
+        mine, theirs = first_decision(got_log.at[(key, f)]), first_decision(ref_log.at[(key, f)])
+        diff = [j for j, (x, y) in enumerate(zip(mine, theirs)) if x != y]
+        if diff:
+            row = diff[0]
+            break
+    if row is None:
+        fail(f"{label}: the codes differ but no decision in their first {n} frames does")
+    a, b = got_log.at[(key, f)], ref_log.at[(key, f)]
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    slow_plain = "slow" not in b
+    if row == 0 and not slow_plain:
+        l8, prev, g, t, p, r, tok8 = a["slow"]
+        l1, *inputs, tok1 = b["slow"]
+        if not same(inputs, (prev, g, t, p, r)):
+            fail(f"{label}: frame {f}: the slow token's inputs differ beyond its logits")
+        tol = (l8.float() - l1.float()).abs().max().item()
+        lanes = torch.arange(l1.shape[1], device=l1.device)
+        hit = (lanes[None, None, :] == prev.long()[:, :, None]).any(dim=1)
+        ref_l = l1.float()
+        ref_l = torch.where(hit, torch.where(ref_l < 0, ref_l * r, ref_l / r), ref_l)
+        m = sample_decision_margins(tok8, tok1, ref_l, g, t, p, -1, tol)
+    elif "fast" in b:
+        c8, lg8, g, t, p = a["fast"]
+        c1, ref_l, *inputs = b["fast"]
+        if not same(inputs, (g, t, p)):
+            fail(f"{label}: frame {f}: the fast decoder's inputs differ beyond its hidden state")
+        tol = (lg8[:, :row].float() - ref_l[:, :row].float()).abs().max().item()
+        m = fast_decision_margins(c8, c1, lg8, ref_l, g, t, p, tol)
+    else:
+        l8, g, t, p, code8, top_k = a["plain"][row - 1 + slow_plain]
+        ref_l, *inputs, code1, _ = b["plain"][row - 1 + slow_plain]
+        if not same(inputs, (g, t, p)):
+            fail(f"{label}: frame {f} decision {row}: the inputs differ beyond the logits")
+        tol = (l8 - ref_l).abs().max().item()
+        m = sample_decision_margins(code8, code1, ref_l, g, t, p, top_k, tol)
+    scale = ref_l.float().abs().max().item()
+    if m["failures"] or not m["knife_edges"] or not tol <= STACK_TOL * scale:
+        fail(f"{label}: frame {f} decision {row}: the runs differ with no knife edge "
+             f"({m['failures']}; logits differ by {tol:.3g}, tol {STACK_TOL * scale:.3g})")
+    return f
+
+
+def phase_serve(tts, name: str) -> None:
+    """``tts.serve`` on ``tts`` (``name`` its precision; SERVE_CASES its
+    slots, requests, waves and budgets): requests submitted in waves into a
+    running pool (one with a 661-frame reference, one with priority 1, one
+    cancelled at its first audio).  Checks: every kernel launched once per
+    pool decode frame plus the sampler and the fast decoder once per
+    admitted request's prefill, every decode frame a graph replay; each
+    request's codes equal to its codes served alone in a pool of the same
+    slots (co-tenant invariance, exact on every route), and to its solo
+    B = 1 run or differing first at a knife edge (:func:`knife_edge`, both
+    runs repeated on the eager loop); its PCM frames x 2048 samples and
+    within STREAM_PCM_TOL of the joint decode of its codes; no event for the
+    cancelled request after its cancel; every graph capture mid-serving
+    leaves the pool's state and the chunk in flight untouched.  Prints the
+    aggregate frames/s, ``stats()`` over the waved requests alone, device ms
+    per round, the graph captures and their time, the allocations and the
+    peak device memory."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+
+    slots, n, waves, budgets = SERVE_CASES[name]
+    label = f"serve {name} slots={slots}"
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    sess = tts.serve(slots=slots, warmup=True)
+    torch.cuda.synchronize()
+    srv = sess._srv
+    print(f"{label}: session built and warmed up in {time.perf_counter() - t:.1f} s "
+          f"({srv.graph_captures} graph(s) captured in {srv.capture_s:.2f} s)", flush=True)
+    reqs = serve_requests(n, budgets, reference_profile(tts._cfg))
+    cancel = SERVE_CANCEL
+    rec = ServeRecorder(sess)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    allocs0 = len(srv.allocs)
+    srv._done_stats.clear()  # stats() of the waved requests, not the warm-up's
+    try:
+        ids, events, wall, first, cancelled_at = drive_serve(sess, reqs, waves, cancel)
+        torch.cuda.synchronize()
+    finally:
+        rec.stop()
+    st = sess.stats()
+    launches = kernel_counts()
+    replays, eager = decode.graph_replays, decode.eager_frames
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    W = tts.engine.engine_cfg.rep_penalty_window
+
+    def rt(B):
+        return decode.route(tts._cfg, tts.engine.params, B, W, **tts.engine._options)
+
+    pool = rt(slots)
+    want = {"sample_slow": pool.sampler * replays + sum(rt(g).sampler for g in rec.prefills),
+            **stack_counts(tts._cfg, pool.slow_stack * replays),
+            "fast_decode_frame": pool.fast * replays + sum(rt(g).fast for g in rec.prefills)}
+    if launches != want or eager or not replays:
+        fail(f"{label}: kernel launches {launches} with {replays} graph replays, {eager} eager "
+             f"frames and {len(rec.prefills)} admissions; the routes imply {want}")
+    tally("serve", launches)
+    if cancelled_at is None:
+        fail(f"{label}: request {cancel} never reached its first audio")
+
+    hop = tts._vocoder_cfg.frame_length
+    frames, served, alone, solo = [], {}, {}, {}
+    for i, (rid, (text, kw)) in enumerate(zip(ids, reqs)):
+        evs = events[rid]
+        served[i] = np.concatenate(rec.codes[rid], axis=1)
+        alone[i] = served_alone(sess, text, kw)
+        frames.append(evs[-1].frames_total)
+        if i == cancel:
+            if any(e.done for e in evs):
+                fail(f"{label}: the cancelled request got a done event")
+            alone[i] = alone[i][:, :served[i].shape[1]]
+            continue
+        if sum(e.done for e in evs) != 1 or not evs[-1].done:
+            fail(f"{label}: request {i}: {sum(e.done for e in evs)} done events")
+        pcm = np.frombuffer(b"".join(e.pcm for e in evs), np.int16).astype(np.int32)
+        n_frames = frames[-1]
+        if not (n_frames == served[i].shape[1] <= kw["max_new_tokens"]
+                and len(pcm) == n_frames * hop):
+            fail(f"{label}: request {i}: {len(pcm)} samples for {n_frames} frames "
+                 f"({served[i].shape[1]} codes, budget {kw['max_new_tokens']})")
+        joint = np.frombuffer(tts._decode_to_pcm(served[i]), np.int16).astype(np.int32)
+        err = int(np.abs(pcm - joint).max())
+        if not err <= STREAM_PCM_TOL or not np.abs(joint).max():
+            fail(f"{label}: request {i}: PCM against the joint decode off by {err} int16 steps")
+        solo[i] = solo_codes(tts, text, kw)
+    alone_diff = [i for i in served if not np.array_equal(served[i], alone[i])]
+    solo_diff = [i for i in solo if not np.array_equal(served[i], solo[i])]
+    if alone_diff:
+        fail(f"{label}: requests {alone_diff}: their codes differ from their codes served alone")
+    solo_edges = []
+    if solo_diff:
+        # held as knife edges: the served run again on the eager loop, then
+        # each differing request's solo run, every decision recorded
+        served_log, replay = DecisionLog(), eager_session(tts, slots)
+        replayed = ServeRecorder(replay)
+        with served_log.recording():
+            r_ids = drive_serve(replay, reqs, waves, cancel)[0]
+        replayed.stop()
+        if any(not np.array_equal(np.concatenate(replayed.codes[r], axis=1), served[i])
+               for i, r in enumerate(r_ids)):
+            fail(f"{label}: the eager loop does not repeat the served codes")
+        for i in solo_diff:
+            text, kw = reqs[i]
+            key = tts.engine._seed_noise(kw["seed"]).slot_keys([0])[0]
+            log = DecisionLog()
+            with log.recording(), mock.patch.object(tts.engine, "_decode",
+                                                    eager_route(tts.engine)):
+                again = solo_codes(tts, text, kw)
+            if not np.array_equal(again, solo[i]):
+                fail(f"{label}: request {i}: the eager loop does not repeat its solo run")
+            solo_edges.append((i, knife_edge(served_log, log, key, served[i], solo[i],
+                                             f"{label}: request {i} against its solo run")))
+    torch.cuda.synchronize()
+    rounds = rec.round_ms()
+    fps = sum(frames) / wall
+    print(f"{label}: {n} requests in {waves} waves ({len(rec.prefills)} admissions, each "
+          f"prefilled alone), {sum(frames)} frames {frames}; {wall:.3f} s wall = {fps:.1f} "
+          f"aggregate frames/s over {len(rounds)} rounds, device {statistics.median(rounds):.2f} "
+          f"ms per round (median; mean {statistics.mean(rounds):.2f}); peak device memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    print(f"{label}: stats() time to first frames p50 {st['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{st['ttft_p95_s'] * 1e3:.1f} ms; queue wait p50 {st['queue_wait_p50_s'] * 1e3:.1f} "
+          f"ms, p95 {st['queue_wait_p95_s'] * 1e3:.1f} ms; time to first audio per request "
+          f"(ms) {[round(first[r] * 1e3, 1) for r in ids if r in first]}", flush=True)
+    print(f"{label}: {len(rec.captures)} graph capture(s) while serving, "
+          f"{sum(rec.captures):.2f} s, each leaving the pool's state and the chunk in flight "
+          f"untouched; allocations {srv.allocs[allocs0 - 1:]}; kernel launches "
+          f"{json.dumps(launches)} for {replays} decode frames, all replayed from captured "
+          f"graphs, 0 eager", flush=True)
+    print(f"{label}: against its codes served alone in a {slots}-slot pool: {n} of {n} equal; "
+          f"against its solo B=1 run: "
+          f"{len(solo) - len(solo_edges)} of {len(solo)} equal, {len(solo_edges)} at a knife edge "
+          f"{solo_edges}; PCM within {STREAM_PCM_TOL} int16 steps of the joint decode; request "
+          f"{cancel} cancelled at its first audio, no event after", flush=True)
+    print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def http_post(addr, path: str, body: dict):
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    out = r.status, r.headers.get("Content-Type"), r.headers.get("X-Request-Id"), r.read()
+    conn.close()
+    return out
+
+
+def http_get(addr, method: str, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn.request(method, path, "{}" if method == "PUT" else None)
+    r = conn.getresponse()
+    out = r.status, r.read()
+    conn.close()
+    return out
+
+
+def phase_http(tts) -> None:
+    """``serving.http.make_server`` on ``tts`` on loopback with 4 slots: two
+    concurrent ``POST /synthesize`` (L16 and WAV), each PCM equal to a
+    ``ServeSession``'s with the same requests; ``POST /v1/audio/speech``
+    (WAV); ``GET /stats`` and ``/metrics``; ``PUT /voices/x`` answering
+    501; then the driver closed and the server shut down."""
+    import threading
+
+    from fish_tts_tpu_torch.serving.http import make_server
+
+    t0 = time.perf_counter()
+    srv, driver = make_server(tts, host="127.0.0.1", port=0, slots=4)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address
+    bodies = [{"text": TEXT, "seed": SEED + 200, "max_new_tokens": 60, "temperature": 0.7},
+              {"text": SHORT_TEXT, "seed": SEED + 201, "max_new_tokens": 45, "top_p": 0.9,
+               "format": "wav"}]
+    got = [None, None]
+    try:
+        def fetch(i):
+            got[i] = http_post(addr, "/synthesize", bodies[i])
+
+        threads = [threading.Thread(target=fetch, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(g is None or g[0] != 200 for g in got):
+            fail(f"http: /synthesize answered {[g and g[0] for g in got]}")
+        if got[0][1] != "audio/L16" or got[1][1] != "audio/wav" or got[1][3][:4] != b"RIFF":
+            fail(f"http: content types {got[0][1]}, {got[1][1]}")
+        # the same requests, in the server's order, through a session of its own
+        order = sorted(range(2), key=lambda i: int(got[i][2]))
+        sess = tts.serve(slots=4, warmup=False)
+        rids = {}
+        for i in order:
+            kw = {k: v for k, v in bodies[i].items() if k not in ("text", "format")}
+            rids[sess.submit(bodies[i]["text"], **kw)] = i
+        want = [b"", b""]
+        for ev in sess.run():
+            want[rids[ev.request_id]] += ev.pcm
+        pcm = [got[0][3], got[1][3][44:]]
+        if pcm != want or not all(pcm):
+            fail(f"http: the served PCM ({[len(p) for p in pcm]} bytes) differs from the "
+                 f"session's ({[len(w) for w in want]} bytes)")
+        status, ctype, _, wav = http_post(addr, "/v1/audio/speech", {
+            "model": "tts-1", "input": SHORT_TEXT, "voice": "alloy", "response_format": "wav",
+            "seed": SEED + 202, "max_new_tokens": 30})
+        if status != 200 or ctype != "audio/wav" or wav[:4] != b"RIFF" or \
+                struct.unpack("<I", wav[4:8])[0] != len(wav) - 8:
+            fail(f"http: /v1/audio/speech answered {status} {ctype}, {len(wav)} bytes")
+        status, body = http_get(addr, "GET", "/stats")
+        stats = json.loads(body)
+        m_status, metrics = http_get(addr, "GET", "/metrics")
+        v_status, _ = http_get(addr, "PUT", "/voices/x")
+        if status != 200 or stats["completed"] < 3 or m_status != 200 or \
+                b"fish_tts_completed " not in metrics or v_status != 501:
+            fail(f"http: /stats {status} {stats}, /metrics {m_status}, PUT /voices {v_status}")
+    finally:
+        clean = driver.close()
+        srv.shutdown()
+        thread.join(timeout=30)
+    if not clean or thread.is_alive():
+        fail("http: the driver or the server did not stop")
+    print(f"http: two concurrent /synthesize (L16 {len(pcm[0])} bytes, WAV {len(got[1][3])} "
+          f"bytes) equal to a ServeSession's PCM; /v1/audio/speech WAV {len(wav)} bytes; "
+          f"/stats {json.dumps(stats)}; /metrics {metrics.count(b'# TYPE')} gauges; "
+          f"PUT /voices 501; driver and server stopped; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def main() -> int:
@@ -1860,7 +2489,9 @@ def main() -> int:
         row = results[name]["B=1"]
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "launches": launches[name],
+            "launches_by_path": {path: sums[name] for path, sums in PATH_LAUNCHES.items()},
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
         })

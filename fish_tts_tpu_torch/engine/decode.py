@@ -206,6 +206,19 @@ class GumbelNoise:
         return [_mix32(_mix32(_mix32(s) ^ lo) ^ hi) for s in slots]
 
 
+class KeyedNoise(GumbelNoise):
+    """The default source with each slot's key given: row b draws with
+    ``keys[b]``.  The continuous batcher prefills a group of requests with
+    it, each row keyed as its request's slot 0 would be in a solo run."""
+
+    def __init__(self, keys):
+        super().__init__(0, None)
+        self.keys = [int(k) for k in keys]
+
+    def slot_keys(self, slots) -> list[int]:
+        return [self.keys[s] for s in slots]
+
+
 def _host_draws(noise: HostNoise, step: torch.Tensor, draws: Draws, device):
     """A host source's draws of every slot at its own step (reads the steps
     back, so it runs only eagerly): ((B, slow), (B, K-1, fast))."""
@@ -248,6 +261,34 @@ def reset_state(state: State) -> State:
         t.zero_()
     state["sampling"].fill_(1.0)
     return state
+
+
+@torch.no_grad()
+def resize_cache(state: State, new: State) -> State:
+    """Move ``state`` into ``new``, a state of the same batch with another
+    KV allocation, in place (a captured decode graph holds ``new``'s
+    addresses, so a fresh dict would leave it replaying stale memory): the
+    KV rows below both lengths are copied, the rows above them zeroed, and
+    every other field copied as it is, positions clamped into the new
+    allocation.  When shrinking, the caller must keep every live row below
+    the new length; a done row may sit past it, and the clamp keeps its
+    frames' cache writes inside (the JAX package leaves that to XLA's
+    clamped dynamic-slice writes).  Returns ``new``."""
+    S = new["kv"]["k"].shape[3]
+    n = min(state["kv"]["k"].shape[3], S)
+    for k in ("k", "v"):
+        new["kv"][k][:, :, :, :n].copy_(state["kv"][k][:, :, :, :n])
+        new["kv"][k][:, :, :, n:].zero_()
+    for k, v in state.items():
+        if k != "kv":
+            new[k].copy_(v)
+    new["pos"].clamp_(max=S - 1)
+    return new
+
+
+def mark_done(state: State, mask: torch.Tensor) -> None:
+    """Force-finish the slots of ``mask`` (B,) bool, in place."""
+    state["done"] |= mask
 
 
 def set_sampling(state: State, temperature, top_p, repetition_penalty) -> None:
@@ -555,7 +596,7 @@ class DecodeGraph:
                                   kv_bucket=kv_bucket, skip_done=skip_done, ring=self.ring,
                                   **options)
         saved = [t.clone() for t in _tensors(state)]
-        counts = [m.launches for m in _KERNELS]
+        counts = _launch_counts()
         with torch.no_grad():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -563,14 +604,14 @@ class DecodeGraph:
                 frame()
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            before = [m.launches for m in _KERNELS]
+            before = _launch_counts()
             with torch.cuda.graph(self.graph):
                 frame()
-            self._launches = [m.launches - n for m, n in zip(_KERNELS, before)]
+            self._launches = [n - m for n, m in zip(_launch_counts(), before)]
             # the warm-up frame is undone and the capture only records its
             # launches: neither counts
-            for m, n in zip(_KERNELS, counts):
-                m.launches = n
+            for (m, name), n in zip(_COUNTERS, counts):
+                setattr(m, name, n)
             for t, old in zip(_tensors(state), saved):
                 t.copy_(old)
         # what the graph reads must outlive it
@@ -587,8 +628,7 @@ class DecodeGraph:
             for _ in range(n):
                 self.graph.replay()
             graph_replays += n
-            for m, k in zip(_KERNELS, self._launches):
-                m.launches += k * n
+            _add_launches(k * n for k in self._launches)
             frames.append(self.ring.frames[:, :n].clone())
             emitted.append(self.ring.emitted[:, :n].clone())
         if len(frames) == 1:
@@ -596,7 +636,18 @@ class DecodeGraph:
         return torch.cat(frames, dim=1), torch.cat(emitted, dim=1)
 
 
-_KERNELS = (sampler_kernel, slow_stack, fast_decoder)  # modules with a launch count
+# each kernel's launch counter: (module, attribute)
+_COUNTERS = ((sampler_kernel, "launches"), (slow_stack, "launches"),
+             (slow_stack, "headless_launches"), (fast_decoder, "launches"))
+
+
+def _launch_counts() -> list[int]:
+    return [getattr(m, name) for m, name in _COUNTERS]
+
+
+def _add_launches(deltas) -> None:
+    for (m, name), k in zip(_COUNTERS, deltas):
+        setattr(m, name, getattr(m, name) + k)
 
 
 def _tensors(state: State) -> list[torch.Tensor]:

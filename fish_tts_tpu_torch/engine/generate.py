@@ -182,18 +182,24 @@ class GenerationEngine:
         self.metrics = Metrics()
         self._states: dict[tuple, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
-        # The reference-voice prefix: (state, generation), replaced whole on
-        # each change so that a caller takes a consistent snapshot with one
-        # attribute read.  The state is the engine's own allocation, never a
-        # call's working state.
+        # The reference-voice prefix: (state, generation, length in tokens),
+        # replaced whole on each change so that a caller takes a consistent
+        # snapshot with one attribute read.  The state is the engine's own
+        # allocation, never a call's working state.
         self._prefix_counter = itertools.count(1)
-        self._prefix_ref: tuple[decode_mod.State | None, int] = (None, 0)
+        self._prefix_ref: tuple[decode_mod.State | None, int, int] = (None, 0, 0)
 
     def _next_noise(self) -> decode_mod.GumbelNoise:
         """A fresh noise source for one generation."""
         with self._seeds_lock:
             seed = int(self._seeds.integers(0, 2**63 - 1))
         return decode_mod.GumbelNoise(seed, self.cfg, self.device)
+
+    def _seed_noise(self, seed: int) -> decode_mod.GumbelNoise:
+        """The source that the first generation after ``reseed(seed)``
+        draws, leaving the engine's own sequence as it is."""
+        return decode_mod.GumbelNoise(int(np.random.default_rng(seed).integers(0, 2**63 - 1)),
+                                      self.cfg, self.device)
 
     def reseed(self, seed: int) -> None:
         """Restart the sequence of per-generation noise seeds from ``seed``."""
@@ -208,7 +214,7 @@ class GenerationEngine:
         [speaker, target text] block of the reference layout.  No texts
         clears it."""
         if not prompt_texts:
-            self._prefix_state = None
+            self.clear_prefix()
             return
         seq = ContentSequence(modality="interleave")
         for t, c in zip(prompt_texts, prompt_codes):
@@ -227,19 +233,22 @@ class GenerationEngine:
         # only the KV cache and the position survive
         for k in ("done", "frame", "step"):
             state[k].zero_()
-        self._prefix_state = state
+        # the length is published with the state, so that a reader of the
+        # snapshot never reads it back from the device
+        self._prefix_ref = (state, next(self._prefix_counter), T)
         logger.info("Cached KV prefix of %d tokens for %d reference(s)", T, len(prompt_texts))
 
     def clear_prefix(self) -> None:
-        self._prefix_state = None
+        self._prefix_ref = (None, next(self._prefix_counter), 0)
 
     @property
     def _prefix_state(self) -> decode_mod.State | None:
         return self._prefix_ref[0]
 
-    @_prefix_state.setter
-    def _prefix_state(self, state: decode_mod.State | None) -> None:
-        self._prefix_ref = (state, next(self._prefix_counter))
+    def _prefix_snapshot(self) -> tuple[decode_mod.State | None, int, int]:
+        """One consistent (prefix state, its generation, its length in
+        tokens; 0 without a prefix): one read of the published tuple."""
+        return self._prefix_ref
 
     @property
     def has_prefix(self) -> bool:
@@ -253,7 +262,11 @@ class GenerationEngine:
         (the rest zero), then every other field, broadcast over the rows.
         The caller passes the one snapshot it gated on.  The JAX package's
         ``_fork_prefix`` and ``_fork_prefix_batch`` in one."""
-        state = self._fresh_state(batch, alloc)
+        return self._fork_into(prefix, self._fresh_state(batch, alloc))
+
+    def _fork_into(self, prefix: decode_mod.State, state: decode_mod.State) -> decode_mod.State:
+        """Copy a B = 1 prefix snapshot into a zeroed ``state`` in place: its
+        KV rows, then every other field, broadcast over the rows."""
         self._fork_kv(prefix["kv"], state["kv"])
         for k, v in prefix.items():
             if k != "kv":
@@ -365,11 +378,11 @@ class GenerationEngine:
         max_length = cfg.max_seq_len
         # one snapshot: a later set_prefix/clear_prefix does not change what
         # this call forks
-        prefix = self._prefix_ref[0]
+        prefix, _, snap_len = self._prefix_snapshot()
         use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
         if use_cached_prefix:
             enc = self._encode_suffix(text)
-            prefix_len = int(prefix["pos"][0])
+            prefix_len = snap_len
             prompt_len = prefix_len + enc.values.shape[1]
         else:
             enc = build_prompt(self.tokenizer, text, cfg.num_codebooks,
@@ -554,11 +567,11 @@ class GenerationEngine:
 
         # one snapshot: the prefix's length and the forked KV describe the
         # same prefix even if set_prefix/clear_prefix lands mid-call
-        prefix = self._prefix_ref[0]
+        prefix, _, snap_len = self._prefix_snapshot()
         use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
         if use_cached_prefix:
             encs = [self._encode_suffix(t) for t in texts]
-            prefix_len = int(prefix["pos"][0])
+            prefix_len = snap_len
         else:
             encs = [build_prompt(self.tokenizer, t, cfg.num_codebooks,
                                  prompt_texts=prompt_text or [],

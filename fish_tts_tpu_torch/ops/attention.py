@@ -11,6 +11,7 @@ import math
 import torch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+CACHE_BLOCK = 256  # keys per step of the two-part attention's walk over the cache
 
 
 def window_causal_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
@@ -34,28 +35,42 @@ def attention(q, k, v, bias=None):
 
 
 def gqa_attention_two_part(q, k_cache, v_cache, cache_bias, k_new, v_new, block_bias):
-    """Exact attention over [cache ++ current block] with one softmax over
-    the joined key axis; the cache is read-only.
+    """Exact attention over [cache ++ current block]; the cache is read-only.
 
     q (B, Hq, Tq, D); k/v_cache (B, Hkv, S, D); cache_bias (B, 1, Tq, S);
     k/v_new (B, Hkv, Tq, D); block_bias (B|1, 1, Tq, Tq).
+
+    The JAX package takes one softmax over the joined key axis.  Here the
+    block's own keys come first and the cache follows in CACHE_BLOCK-key
+    blocks, folded into a running (max, denominator, weighted sum) in f32,
+    so every product and reduction has the same shape whatever S is.  A
+    block that ``cache_bias`` masks whole for a row adds exact zeros to it:
+    a row's output has the same bits at every read window past its length,
+    which a pool's window, set by its longest stream, needs to leave each
+    stream's codes independent of its co-tenants.  Each query row must see
+    at least one of its block's keys (a causal ``block_bias`` does).
     """
     B, Hq, Tq, D = q.shape
     Hkv = k_cache.shape[1]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, Tq, D).float()
     scale = 1.0 / math.sqrt(D)
-    s_cache = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache.float()) * scale
-    s_cache = s_cache + cache_bias[:, :, None]
-    s_new = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_new.float()) * scale
-    s_new = s_new + block_bias[:, :, None]
-    probs = torch.softmax(torch.cat([s_cache, s_new], dim=-1), dim=-1)
-    S = k_cache.shape[2]
-    p_cache = probs[..., :S].to(v_cache.dtype)
-    p_new = probs[..., S:].to(v_new.dtype)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p_cache, v_cache)
-    out = out + torch.einsum("bhgqk,bhkd->bhgqd", p_new, v_new)
-    return out.reshape(B, Hq, Tq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_new.float()) * scale + block_bias[:, :, None]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v_new.float())
+    for j in range(0, k_cache.shape[2], CACHE_BLOCK):
+        blk = slice(j, j + CACHE_BLOCK)
+        s = (torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache[:, :, blk].float()) * scale
+             + cache_bias[:, :, None, :, blk])
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        a = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        den = den * a + p.sum(dim=-1, keepdim=True)
+        acc = acc * a + torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache[:, :, blk].float())
+        m = m_new
+    return (acc / den).to(v_cache.dtype).reshape(B, Hq, Tq, D)
 
 
 def gqa_attention(q, k, v, bias=None):

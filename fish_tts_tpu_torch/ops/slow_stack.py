@@ -49,7 +49,8 @@ MAX_BATCH = 16
 BLOCKS_PER_SM = 4  # 2048 threads per SM over 512 per block: the most the grid can hold
 CHUNK = 64         # csrc/slow_stack.cu kChunk: cache rows per attention task
 
-launches = 0  # kernel launches, for showing that a run went through it
+launches = 0  # kernel launches with the tied head, for showing that a run went through it
+headless_launches = 0  # the same for the head-less variant (an untied head)
 # When set to a CUDA int64 tensor (blocks >= the grid, stamps), each block of
 # the kernel writes the global timer (ns) at its start and at its arrival at
 # and departure from every grid-wide barrier, in order.
@@ -258,7 +259,7 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     if x.device.type == "cpu":
         return slow_stack_step_plain(params, cfg, rope_slow, x, kv_cache, pos,
                                      read_len=read_len, skip=skip)
-    global launches
+    global launches, headless_launches
     B, D = x.shape
     L, H, Hkv, Dh = cfg.n_layer, cfg.n_head, cfg.n_local_heads, cfg.head_dim
     I = cfg.intermediate_size
@@ -321,5 +322,8 @@ def slow_stack_step(params: Params, cfg: DualARConfig, rope_slow: torch.Tensor,
     dims = [B, L, D, H, Hkv, Dh, I, V, S, read_len, int(kc.dtype == torch.bfloat16),
             0 if clock is None else clock.shape[1], n_scratch]
     kernels.launch("fts_slow_stack_step", ptrs, dims, eps=cfg.norm_eps)
-    launches += 1
+    if V:
+        launches += 1
+    else:
+        headless_launches += 1
     return hidden[:, None], new_k, new_v, logits

@@ -1,10 +1,11 @@
 """The public API: ``FishTTS.synthesize(text) -> WAV bytes``,
-``FishTTS.synthesize_stream(text) -> int16 PCM chunks`` and their batched
-forms ``synthesize_batch(texts)`` / ``synthesize_batch_stream(texts)`` on
-the card.
+``FishTTS.synthesize_stream(text) -> int16 PCM chunks``, their batched
+forms ``synthesize_batch(texts)`` / ``synthesize_batch_stream(texts)`` and
+continuous-batching serving, ``FishTTS.serve() -> ServeSession``, on the
+card.
 
-Port of ``fish_tts_tpu/synthesizer.py`` without long text and the codec
-encoder: ``FishTTS`` (from a native model directory or a testing bundle,
+Port of ``fish_tts_tpu/synthesizer.py`` without ``synthesize_long`` and the
+codec encoder: ``FishTTS`` (from a native model directory or a testing bundle,
 precision ``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), single and
 batched synthesis, streamed or not, with ``references=`` per call or the
 stored ones (``set_references`` and friends: prefilled once into the
@@ -210,6 +211,7 @@ class FishTTS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         self.device = resolve_device(device)
         self._precision = precision
+        self._is_warmed_up = warmup
         self._prefill_cache = _PrefillCache()
         self._prefill_lock = threading.Lock()
         if _testing_bundle is not None:
@@ -521,6 +523,35 @@ class FishTTS:
         if in_flight is not None:
             yield self._force_pcm(*in_flight)
 
+    # -- serving ---------------------------------------------------------------
+
+    def serve(self, slots: int = 8, vocoder_device=None, max_queue: int = 0,
+              warmup: bool | None = None) -> "ServeSession":
+        """Continuous-batching audio serving: a session whose requests join
+        the running decode pool (``engine.serve.ContinuousBatcher``) and
+        stream int16 PCM per request through one pool-wide stateful codec
+        (one decode and one PCM read per round; see :class:`ServeSession`).
+
+        >>> sess = tts.serve(slots=8)
+        >>> rid = sess.submit("hello", max_new_tokens=400)
+        >>> for ev in sess.run():
+        ...     play(ev.request_id, ev.pcm)
+
+        ``vocoder_device``: only ``None`` (the codec on the LM's card) runs
+        in the port.  ``max_queue`` bounds the queued requests (``submit``
+        raises ``engine.serve.QueueFull`` at it; 0 = unbounded).
+        ``warmup`` drains one tiny request first, so that the pool's graphs
+        are captured before the first real request; ``None`` follows the
+        instance's own warmup setting."""
+        if self._vocoder_params is None:
+            raise RuntimeError("Audio serving requires the vocoder; this instance loaded "
+                               "without one (LM codes only).")
+        sess = ServeSession(self, slots=slots, vocoder_device=vocoder_device,
+                            max_queue=max_queue)
+        if warmup if warmup is not None else self._is_warmed_up:
+            sess.warmup()
+        return sess
+
     # -- the codec -------------------------------------------------------------
 
     def _decode_codes_async(self, codes: np.ndarray):
@@ -609,6 +640,466 @@ class FishTTS:
     @property
     def precision(self) -> str:
         return self._precision
+
+
+@dataclass
+class AudioEvent:
+    """One serving round's audio for one request."""
+
+    request_id: int
+    pcm: bytes  # int16 PCM, mono, the codec's rate (b"" on a frame-less finish)
+    done: bool
+    frames_total: int  # cumulative LM frames emitted for this request
+
+
+class _LongChain:
+    """A long request in serving: one external id, a chain of LM requests
+    (one per text chunk) and one continuous audio stream.
+
+    Segment i > 0 is prompted with the base references plus (chunk i - 1,
+    its trailing ``carry_frames`` codes), unless the engine holds a session
+    prefix (then the prefix is the voice and successors submit plain text).
+    The pool codec's state carries across segments, with no reset."""
+
+    __slots__ = ("chunks", "idx", "cur", "base_texts", "base_codes", "carry_frames", "kw",
+                 "seed", "deadline", "tail", "frames_offset", "aliases", "pending",
+                 "pending_kw")
+
+    def __init__(self, chunks, base_texts, base_codes, carry_frames, kw, seed, deadline):
+        self.chunks = chunks
+        self.idx = 1  # next chunk to submit
+        self.cur = -1  # current internal request id
+        self.base_texts = base_texts
+        self.base_codes = base_codes
+        self.carry_frames = carry_frames
+        self.kw = kw  # sampling and priority arguments of the successors
+        self.seed = seed
+        self.deadline = deadline  # absolute time.monotonic(); 0 = none
+        self.tail: np.ndarray | None = None  # the current segment's last codes
+        self.frames_offset = 0  # frames finished in earlier segments
+        self.aliases: list[int] = []  # the successors' internal ids
+        # a prepared successor kept across QueueFull retries (its carry is
+        # already taken)
+        self.pending = None
+        # a successor's arguments not yet prepared (prepare raised QueueFull):
+        # the carry lives in here
+        self.pending_kw = None
+
+    def feed(self, codes: np.ndarray) -> None:
+        """Keep the current segment's trailing codes (one spare frame, so the
+        EOS frame can be dropped at the segment's end)."""
+        keep = self.carry_frames + 1
+        tail = codes if self.tail is None else np.concatenate([self.tail, codes], axis=1)
+        self.tail = tail[:, -keep:]
+
+    def take_carry(self) -> np.ndarray | None:
+        """The finished segment's carry codes, its EOS frame dropped."""
+        tail = self.tail
+        self.tail = None
+        if self.carry_frames <= 0 or tail is None or tail.shape[1] == 0:
+            return None
+        if tail.shape[1] > 1:
+            tail = tail[:, :-1]
+        return tail[:, -self.carry_frames:].astype(np.int64)
+
+
+class _SlotAudioStream:
+    """One request's audio stream in a lane of the pool codec."""
+
+    __slots__ = ("rid", "bufs", "buffered", "needs_reset", "lm_done", "frames_total")
+
+    def __init__(self, rid: int):
+        self.rid = rid
+        self.bufs: list[np.ndarray] = []  # FIFO of (K, m) code chunks
+        self.buffered = 0
+        self.needs_reset = True  # the first flush restarts the lane's stream
+        self.lm_done = False
+        self.frames_total = 0
+
+    def take(self, m: int) -> np.ndarray:
+        """Pop the oldest ``m`` buffered frames."""
+        out, need = [], m
+        while need:
+            head = self.bufs[0]
+            if head.shape[1] <= need:
+                out.append(self.bufs.pop(0))
+                need -= head.shape[1]
+            else:
+                out.append(head[:, :need])
+                self.bufs[0] = head[:, need:]
+                need = 0
+        self.buffered -= m
+        return out[0] if len(out) == 1 else np.concatenate(out, axis=1)
+
+
+class ServeSession:
+    """Audio-level continuous batching (made by :meth:`FishTTS.serve`).
+
+    LM side: one :class:`~fish_tts_tpu_torch.engine.serve.ContinuousBatcher`
+    slot pool.  Audio side: one pool-wide stateful codec
+    (``vocoder_stream.decode_chunk_pool``, int16 PCM made on the device) with
+    as many lanes as LM slots, a lane taken from a free pool per audio
+    stream (not keyed by LM slot: a long chain keeps its lane across its
+    segments while its LM slots are recycled).  Every flushing stream's chunk
+    decodes in one call per round, its PCM comes back through one pinned
+    copy and an event, and it is read one round late, so the copy overlaps
+    the next round's work.
+
+    Flushes are ``decode_chunk`` frames wide; a request's shorter final
+    chunk is zero-padded into the same call (the decode is causal, so its
+    samples are exact) and the host truncates.  Streamed PCM includes the
+    EOS frame, as ``synthesize_stream``'s does."""
+
+    def __init__(self, tts: FishTTS, slots: int = 8, vocoder_device=None, max_queue: int = 0):
+        from fish_tts_tpu_torch.engine.serve import ContinuousBatcher
+
+        if vocoder_device is not None:
+            raise NotImplementedError("vocoder_device: the port serves on one card; the codec "
+                                      "runs on the LM's device")
+        self._tts = tts
+        self._srv = ContinuousBatcher(tts._engine, slots=slots, max_queue=max_queue)
+        self._slots = slots
+        self._n = self._srv.chunk  # the flush width: the LM chunk's frames
+        init, self._decode = tts._pool_vocoder_fns(slots)
+        with self._srv.on_stream():
+            self._state = init(tts._vocoder_params)
+        self._streams: dict[int, _SlotAudioStream] = {}
+        # per lane, a FIFO of audio streams: [0] flushes, the rest wait
+        self._slot_q: list[list[_SlotAudioStream]] = [[] for _ in range(slots)]
+        self._cancel_lock = threading.Lock()
+        self._cancel_pending: set[int] = set()
+        self._cancel_drop: dict[int, int] = {}  # rid -> rounds left to drop
+        # long chains: external id -> _LongChain; a successor's internal id
+        # -> external id (both under _cancel_lock)
+        self._chains: dict[int, _LongChain] = {}
+        self._alias: dict[int, int] = {}
+        # chains whose next segment met QueueFull, retried each round
+        self._chain_retry: dict[int, _LongChain] = {}
+        # one codec round in flight: ((host PCM, copy event) | None, emits)
+        self._pending = None
+
+    def submit(self, text: str, *, max_new_tokens: int = 2048, temperature: float = 0.7,
+               top_p: float = 0.8, repetition_penalty: float = 1.1, seed: int | None = None,
+               references: list[VoiceProfile] | None = None, priority: int = 0,
+               timeout_s: float = 0.0, long: bool = False, max_chars: int = 200,
+               carry_frames: int = 64, **kw) -> int:
+        """Queue a request; returns its id.  Thread-safe.  ``seed`` pins its
+        sampling to its solo run's (``engine.serve``); ``references`` are
+        per-request voices, inlined into its prompt (not with a session
+        prefix).  ``long`` splits the text into sentence-aware chunks of
+        ``max_chars`` that decode as a chain of pool requests under this one
+        id, each prompted with its predecessor's text and last
+        ``carry_frames`` codes; the consumer sees one PCM stream with one
+        final done event, ``timeout_s`` bounds the whole chain and ``seed``
+        gives chunk i the seed ``seed + i``.  Other keyword arguments go to
+        ``ContinuousBatcher.prepare``."""
+        return self.enqueue(self.prepare(
+            text, max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+            repetition_penalty=repetition_penalty, seed=seed, references=references,
+            priority=priority, timeout_s=timeout_s, long=long, max_chars=max_chars,
+            carry_frames=carry_frames, **kw))
+
+    def prepare(self, text: str, *, references=None, long=False, max_chars=200,
+                carry_frames=64, **kw):
+        """The host work of a request (tokenize, prompt, key) without
+        touching the scheduler; pair with :meth:`enqueue`."""
+        from fish_tts_tpu_torch.utils.text import split_text
+
+        base_texts = [r.text for r in references] if references else []
+        base_codes = [np.asarray(r.codes) for r in references] if references else []
+        if not long:
+            if references:
+                kw["prompt_text"], kw["prompt_tokens"] = base_texts, base_codes
+            return self._srv.prepare(text, **kw)
+        chunks = split_text(text, int(max_chars))
+        if not chunks:
+            raise ValueError("long request has no synthesizable text")
+        kw0 = dict(kw)
+        if references:
+            kw0["prompt_text"], kw0["prompt_tokens"] = base_texts, base_codes
+        req = self._srv.prepare(chunks[0], **kw0)
+        if len(chunks) > 1:
+            timeout_s = float(kw.get("timeout_s", 0.0))
+            # the successors' arguments (timeout_s is recomputed per segment
+            # from the chain's deadline)
+            chain_kw = {k: v for k, v in kw.items() if k not in ("seed", "timeout_s")}
+            req._long_chain = _LongChain(
+                chunks, base_texts, base_codes, int(carry_frames), chain_kw, kw.get("seed"),
+                (time.monotonic() + timeout_s) if timeout_s else 0.0)
+        return req
+
+    def enqueue(self, req) -> int:
+        """Queue a prepared request (cheap, thread-safe); returns its id."""
+        chain = getattr(req, "_long_chain", None)
+        rid = self._srv.enqueue(req)
+        if chain is not None:
+            chain.cur = rid
+            with self._cancel_lock:
+                self._chains[rid] = chain
+        return rid
+
+    def cancel(self, request_id: int) -> None:
+        """Abort a request at the next round: its LM slot stops, its buffered
+        codes are dropped and no further audio events come for its id.  A
+        long request's external id aborts its whole chain."""
+        with self._cancel_lock:
+            chain = self._chains.pop(request_id, None)
+            if chain is not None:
+                for a in chain.aliases:
+                    self._alias.pop(a, None)
+                # an event in flight for a successor would resolve to its
+                # raw id once the alias is gone: cancel those ids too
+                self._cancel_pending.update(chain.aliases)
+            self._cancel_pending.add(request_id)
+        self._srv.cancel(chain.cur if chain is not None and chain.cur >= 0 else request_id)
+
+    def _chain_next(self, eid: int, chain: _LongChain) -> str:
+        """Submit a long request's next segment: ``"ok"`` (enqueued),
+        ``"retry"`` (the queue is full; kept for the next round) or
+        ``"end"`` (deadline passed, the prompt no longer fits, or
+        cancelled: the stream ends with the audio made so far)."""
+        from fish_tts_tpu_torch.engine.serve import QueueFull
+
+        now = time.monotonic()
+        if chain.deadline and now >= chain.deadline:
+            return "end"
+        idx = chain.idx
+        req = chain.pending
+        if req is None:
+            kw = chain.pending_kw
+            if kw is None:
+                kw = dict(chain.kw)
+                if chain.seed is not None:
+                    kw["seed"] = chain.seed + idx
+                carry = chain.take_carry()
+                if not self._tts._engine.has_prefix:
+                    # the rolling context; without a carry (EOS on its first
+                    # frame) the base references still go with it
+                    if carry is not None:
+                        kw["prompt_text"] = chain.base_texts + [chain.chunks[idx - 1]]
+                        kw["prompt_tokens"] = chain.base_codes + [carry]
+                    elif chain.base_texts:
+                        kw["prompt_text"] = list(chain.base_texts)
+                        kw["prompt_tokens"] = list(chain.base_codes)
+            if chain.deadline:
+                kw["timeout_s"] = chain.deadline - now
+            try:
+                req = self._srv.prepare(chain.chunks[idx], **kw)
+            except QueueFull:
+                chain.pending_kw = kw  # the taken carry lives in kw
+                return "retry"
+            except ValueError as e:
+                logger.warning("long request %d: chain ended early at chunk %d/%d: %s",
+                               eid, idx, len(chain.chunks), e)
+                return "end"
+            chain.pending_kw = None
+        # enqueue and registration together against cancel(): a cancel after
+        # this block cancels the successor; one before it ends the chain
+        with self._cancel_lock:
+            if self._chains.get(eid) is not chain:
+                return "end"  # cancelled at the segment boundary
+            try:
+                nid = self._srv.enqueue(req)
+            except QueueFull:
+                chain.pending = req
+                return "retry"
+            chain.pending = None
+            chain.idx += 1
+            chain.cur = nid
+            chain.aliases.append(nid)
+            self._alias[nid] = eid
+        return "ok"
+
+    def reset(self) -> None:
+        """Rebuild the session after a failed ``step()``: the LM pool and the
+        pool codec's state start afresh and every live request is dropped
+        (the driver has already ended their consumers' streams)."""
+        self._srv.reset()
+        init, _ = self._tts._pool_vocoder_fns(self._slots)
+        with self._srv.on_stream():
+            self._state = init(self._tts._vocoder_params)
+        self._streams.clear()
+        self._slot_q = [[] for _ in range(self._slots)]
+        self._pending = None
+        self._chain_retry.clear()
+        with self._cancel_lock:
+            self._chains.clear()
+            self._alias.clear()
+            self._cancel_pending.clear()
+            self._cancel_drop.clear()
+
+    def _pick_lane(self) -> int:
+        """The codec lane of a new audio stream: a free one, else the lane
+        with the least pending work, avoiding live chains."""
+        best, best_key = 0, None
+        for s, q in enumerate(self._slot_q):
+            if not q:
+                return s
+            live_chain = any(not st.lm_done and st.rid in self._chains for st in q)
+            live = any(not st.lm_done for st in q)
+            key = (live_chain, live, len(q), sum(st.buffered for st in q))
+            if best_key is None or key < best_key:
+                best, best_key = s, key
+        return best
+
+    def stats(self) -> dict:
+        """The LM scheduler's serving stats (``ContinuousBatcher.stats``)."""
+        return self._srv.stats()
+
+    def step(self) -> list[AudioEvent]:
+        """One scheduler round; returns the previous round's audio events
+        (audio is read one round late, so its copy overlaps device work)."""
+        with self._srv.on_stream():
+            return self._step()
+
+    def _step(self) -> list[AudioEvent]:
+        with self._cancel_lock:
+            cancelled, self._cancel_pending = self._cancel_pending, set()
+        for rid in cancelled:
+            st = self._streams.pop(rid, None)
+            if st is not None:
+                for q in self._slot_q:
+                    if st in q:
+                        q.remove(st)
+                        break
+            # LM events and audio in flight for this id may land for a couple
+            # of rounds (the pipeline is two rounds deep): drop them by id
+            self._cancel_drop[rid] = 4
+        for rid in [r for r, n in self._cancel_drop.items() if n <= 1]:
+            del self._cancel_drop[rid]
+        for rid in self._cancel_drop:
+            self._cancel_drop[rid] -= 1
+        instant_done: list[AudioEvent] = []
+        for eid in list(self._chain_retry):
+            chain = self._chain_retry[eid]
+            r = self._chain_next(eid, chain)
+            if r == "retry":
+                continue
+            del self._chain_retry[eid]
+            if r == "end":
+                with self._cancel_lock:
+                    self._chains.pop(eid, None)
+                    for a in chain.aliases:
+                        self._alias.pop(a, None)
+                st = self._streams.get(eid)
+                if st is not None:
+                    st.lm_done = True  # drain the tail, then emit done
+                elif eid not in self._cancel_drop:
+                    instant_done.append(AudioEvent(eid, b"", True, chain.frames_offset))
+        for ev in self._srv.step():
+            with self._cancel_lock:
+                eid = self._alias.get(ev.request_id, ev.request_id)
+                chain = self._chains.get(eid)
+            if eid in self._cancel_drop:
+                continue
+            done, frames_total = ev.done, ev.frames_total
+            if chain is not None:
+                frames_total += chain.frames_offset
+                if ev.codes.shape[1]:
+                    chain.feed(ev.codes)
+                if done:
+                    # chain on unless this segment failed (expiry and
+                    # rejection events carry slot -1) or was the last
+                    if ev.slot != -1 and chain.idx < len(chain.chunks):
+                        r = self._chain_next(eid, chain)
+                    else:
+                        r = "end"
+                    if r != "end":
+                        done = False
+                        chain.frames_offset = frames_total
+                        if r == "retry":
+                            self._chain_retry[eid] = chain
+                    else:
+                        with self._cancel_lock:
+                            self._chains.pop(eid, None)
+                            for a in chain.aliases:
+                                self._alias.pop(a, None)
+            st = self._streams.get(eid)
+            if st is None:
+                if done and not ev.codes.shape[1]:
+                    # a frame-less finish of a stream never seen (an expiry
+                    # while queued): end it without touching the lanes
+                    instant_done.append(AudioEvent(eid, b"", True, frames_total))
+                    continue
+                st = _SlotAudioStream(eid)
+                self._streams[eid] = st
+                self._slot_q[self._pick_lane()].append(st)
+            if ev.codes.shape[1]:
+                st.bufs.append(ev.codes)
+                st.buffered += ev.codes.shape[1]
+            st.lm_done |= done
+            st.frames_total = frames_total
+
+        n = self._n
+        codes = np.zeros((self._slots, self._tts._cfg.num_codebooks, n), np.int32)
+        active = np.zeros((self._slots,), bool)
+        reset = np.zeros((self._slots,), bool)
+        emits: list[tuple[int, _SlotAudioStream, int, bool]] = []
+        for s in range(self._slots):
+            q = self._slot_q[s]
+            if not q:
+                continue
+            st = q[0]
+            if st.lm_done and not st.buffered:  # frame-less finish
+                emits.append((s, st, 0, True))
+                q.pop(0)
+                del self._streams[st.rid]
+            elif st.buffered >= n or (st.lm_done and st.buffered):
+                m = min(n, st.buffered)
+                codes[s, :, :m] = st.take(m)
+                active[s] = True
+                reset[s] = st.needs_reset
+                st.needs_reset = False
+                done = st.lm_done and not st.buffered
+                emits.append((s, st, m, done))
+                if done:
+                    q.pop(0)
+                    del self._streams[st.rid]
+        audio = None
+        if active.any():
+            dev = self._tts.device
+            self._state, pcm = self._decode(
+                self._tts._vocoder_params, self._state, to_device_async(codes, dev),
+                to_device_async(active, dev), to_device_async(reset, dev))
+            audio = start_fetch(pcm)  # read next round
+        nxt = (audio, emits) if (audio is not None or emits) else None
+        out = self._emit(*self._pending) if self._pending is not None else []
+        self._pending = nxt
+        return instant_done + out
+
+    def _emit(self, audio, emits) -> list[AudioEvent]:
+        fl = self._tts._vocoder_cfg.frame_length
+        arr = None
+        if audio is not None:
+            host, copied = audio
+            with self._tts._engine.metrics.span("vocoder"):
+                if copied is not None:
+                    copied.synchronize()
+                arr = host.numpy()  # (slots, 1, samples) int16
+        return [AudioEvent(st.rid, arr[s, 0, :m * fl].tobytes() if m else b"", done,
+                           st.frames_total)
+                for s, st, m, done in emits if st.rid not in self._cancel_drop]
+
+    @property
+    def busy(self) -> bool:
+        return (self._srv.busy or self._pending is not None or any(self._slot_q)
+                or bool(self._chain_retry))
+
+    def run(self) -> Iterator[AudioEvent]:
+        """Drive the session until the queue and every slot drain."""
+        while self.busy:
+            yield from self.step()
+
+    def warmup(self) -> None:
+        """Drain one tiny request through the session, so that the pool's
+        first graphs are captured and the codec's first round has run
+        before the first real request."""
+        t0 = time.perf_counter()
+        self.submit("Warm up.", max_new_tokens=2 * self._n, seed=0)
+        for _ in self.run():
+            pass  # the warmup request's audio is dropped
+        logger.info("Serve pool warmup (%d slots) in %.1fs", self._slots,
+                    time.perf_counter() - t0)
 
 
 def get_instance(model_dir: str | Path | None = None, device: str = "cuda",

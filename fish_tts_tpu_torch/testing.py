@@ -64,6 +64,23 @@ def make_tiny_bundle(seed: int = 0):
     return cfg, params, tokenizer, vcfg, vparams
 
 
+PAIRWISE_LANES = 4096  # up to this width the mass above each lane is summed pairwise
+
+
+def _mass_above(l: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Per lane, the probability of the lanes whose logit is strictly
+    larger: pairwise up to PAIRWISE_LANES lanes, beyond that (the slow
+    token's 155 776) from one sort and a cumulative sum, ties taking the
+    sum before their group."""
+    if l.shape[-1] <= PAIRWISE_LANES:
+        return torch.where(l[None, :] > l[:, None], p[None, :],
+                           torch.zeros((), dtype=l.dtype)).sum(dim=-1)
+    vals, idx = torch.sort(l, descending=True)
+    before = torch.cumsum(p[idx], dim=0) - p[idx]
+    first = torch.searchsorted(-vals, -vals, side="left")  # each tie group's first place
+    return torch.empty_like(p).scatter_(0, idx, before[first])
+
+
 def _knife_edge(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float, top_p: float,
                 i: int, k: int, tol: float) -> bool:
     """Whether logits that may each move by ``tol`` can turn the fast
@@ -75,8 +92,7 @@ def _knife_edge(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float, 
     t = max(temperature, 1e-5)
     p = torch.softmax(l, dim=-1)
     amax = l.max()
-    above = torch.where(l[None, :] > l[:, None], p[None, :], torch.zeros((), dtype=l.dtype))
-    mass = above.sum(dim=-1) + p  # the pairwise rule keeps a lane iff mass <= top_p
+    mass = _mass_above(l, p) + p  # the pairwise rule keeps a lane iff mass <= top_p
     keep = (mass <= top_p) | (l >= amax) | (top_p >= 1.0)
     score = torch.where(keep, l, torch.full_like(l, NEG)) / t + gumbel.double()
     if keep[i] and keep[k] and abs(float(score[i] - score[k])) <= 2 * tol / t:

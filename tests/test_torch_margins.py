@@ -14,6 +14,7 @@ import math
 import pytest
 import torch
 
+from fish_tts_tpu_torch import testing
 from fish_tts_tpu_torch.ops import fast_decoder as fd
 from fish_tts_tpu_torch.testing import fast_decision_margins, make_tiny_bundle
 from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
@@ -101,3 +102,16 @@ def test_prepare_checks_once_per_parameter_set(monkeypatch, change):
     else:
         assert len(checked) == 2 * n_checks
         assert [t.data_ptr() for t in again[3:13]] == [t.data_ptr() for t in first[3:13]]
+
+
+def test_mass_above_sorted_matches_pairwise(monkeypatch):
+    """Past ``PAIRWISE_LANES`` the mass above each lane comes from one sort
+    (the slow token's width would need a V x V matrix): the same values as
+    the pairwise sum, ties included."""
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn(3000, generator=gen, dtype=torch.float64)
+    logits[5] = logits[7] = logits[11]
+    p = torch.softmax(logits, dim=-1)
+    pairwise = testing._mass_above(logits, p)
+    monkeypatch.setattr(testing, "PAIRWISE_LANES", 10)
+    torch.testing.assert_close(testing._mass_above(logits, p), pairwise, rtol=0, atol=1e-12)

@@ -164,6 +164,40 @@ def test_ops_match_jax(case):
         np.testing.assert_allclose(got, want, rtol=OPS_TOL, atol=OPS_TOL, err_msg=str(i))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_two_part_attention_is_independent_of_the_read_window(dtype):
+    """One decode step of three streams whose cache lengths differ, read at
+    windows of 1, 2 and 4 cache blocks: a stream's output has the same bits
+    at every window that covers its length (a pool's window is set by its
+    longest stream), and matches the JAX package's one softmax over the
+    joined keys."""
+    rng = np.random.default_rng(7)
+    B, Hq, Hkv, D, S = 3, 4, 2, 16, 4 * tattn.CACHE_BLOCK
+    lens = np.array([5, tattn.CACHE_BLOCK - 1, tattn.CACHE_BLOCK + 9])
+    q, kn, vn = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Hq, 1, D), (B, Hkv, 1, D), (B, Hkv, 1, D)))
+    kc, vc = (rng.standard_normal((B, Hkv, S, D)).astype(np.float32) for _ in range(2))
+    block = np.zeros((1, 1, 1, 1), np.float32)
+
+    def run(W):
+        bias = np.where(np.arange(W)[None, None, None] < lens[:, None, None, None], 0.0,
+                        tattn.NEG_INF).astype(np.float32)
+        args = (q, kc[:, :, :W], vc[:, :, :W], bias, kn, vn)
+        got = tattn.gqa_attention_two_part(*(_t(a).to(dtype) for a in args[:3]), _t(bias),
+                                           *(_t(a).to(dtype) for a in args[4:]), _t(block))
+        want = jattn.gqa_attention_two_part(*map(jnp.asarray, args), jnp.asarray(block))
+        return got, np.asarray(want)
+
+    outs = {W: run(W) for W in (tattn.CACHE_BLOCK, 2 * tattn.CACHE_BLOCK, S)}
+    for W, (got, want) in outs.items():
+        covered = lens <= W
+        for b in np.flatnonzero(covered):
+            assert torch.equal(got[b], outs[S][0][b]), (W, b)
+        tol = OPS_TOL if dtype == torch.float32 else 2e-2
+        np.testing.assert_allclose(got.float().numpy()[covered], want[covered], rtol=tol,
+                                   atol=tol)
+
+
 # --- tokenizer: identical ids ------------------------------------------------
 
 
