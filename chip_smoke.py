@@ -20,7 +20,19 @@ printing its own lines; any failure raises and the script exits non-zero:
    (its limit); the sampler and the fast decoder at B = 8 with (B, 1)
    sampling columns whose rows differ (PER_ROW), as a batch with
    per-stream parameters gives; the slow stack's head-less variant (an
-   untied head) at B = 1, 4 and 16, with the slow stack's checks.  Sampler: two calls bit-equal,
+   untied head) at B = 1, 4 and 16, with the slow stack's checks; the fast
+   decoder's "s8" dequant variant at B = 1, 4, 8 and 16 (S8_BATCHES)
+   against its own plain version row by quantized row (``check_s8_rows``:
+   the kernel's int8 rows and scales, copied out through
+   ``fast_decoder.s8_trace``, equal to the plain version's up to a row
+   whose values differ by one step at a rounding tie, S8_TIE_MARGIN; the
+   positions before it within S8_HELD_TOL of the largest logit, the excused
+   ones counted and at most S8_MAX_EXCUSED; every stream bit-equal to the
+   kernel on that stream alone), and against the "value" kernel and plain
+   version on the same inputs (``s8_against_value``: the kernels' distance
+   within REL_TOL of the plain pair's); then at the tiny config on the card
+   against the CPU's plain version at S8_TINY_TOL and within 3% of "value"
+   (``check_s8_tiny``).  Sampler: two calls bit-equal,
    tokens equal to the plain version's but at knife edges of its own
    numbers (``testing.slow_decision_margins``, counted and printed), at
    most 40 cluster-wide rounds and none at top_p 1; the round counter
@@ -42,6 +54,9 @@ printing its own lines; any failure raises and the script exits non-zero:
    peak rate of their type, whichever is larger).  Each kernel with its
    skip flag clear gives the same bits as without it; with the flag set it
    returns zeros, as its plain version does, and its time is printed.
+   Then the port's A/B entry point of the dequant modes
+   (``fish_tts_tpu_torch.scripts.ab_fast_decoder``, AB_ARGS) once, its
+   lines printed and its launches checked (path "ab").
 4. graph: at S1-mini width (GRAPH_CASES: B = 1, and B = 4 with two streams
    already done; R = 256 of S = 512), GRAPH_FRAMES frames through the eager
    loop (``decode.decode_chunk``) and through the captured CUDA graph
@@ -127,16 +142,36 @@ printing its own lines; any failure raises and the script exits non-zero:
    instance ``serving.http.make_server`` on loopback: two concurrent
    ``POST /synthesize`` (L16 and WAV) equal to a ``ServeSession``'s PCM,
    ``POST /v1/audio/speech``, ``GET /stats`` and ``/metrics``, ``PUT
-   /voices`` answering 501, and the driver and server stopped.
+   /voices/smoke`` registering phase 5's first WAV as a voice, ``GET
+   /voices`` listing it and a ``POST /synthesize`` with it equal to a
+   ``ServeSession``'s PCM with the encoded profile, and the driver and
+   server stopped.
+
+10. encode and long text (on the int8 instance, between its serve and
+   HTTP phases, then after them): ``encode_reference`` of phase 5's first
+   WAV against ``dac_encode`` on the CPU in float32 (latent by its largest
+   relative error; codes equal per frame up to a first differing book at a
+   near tie of the CPU's own float64 similarities, VQ_TIE_MARGIN, counted),
+   for the bf16 codec and for the codec cast to float32 on the card, and a
+   control (bf16 weights at 4 significant bits) that must break the bf16
+   limits; encode times of that WAV and of a synthetic ENCODE_SECONDS one with its peak
+   device memory; a ``synthesize`` with the encoded profile.  Then
+   ``synthesize_long_stream`` of LONG_TEXT (3 chunks, LONG_TOKENS frames
+   each): the route's launches (path "long"), PCM of whole frames, the
+   WAV of ``synthesize_long`` after the same reseed equal to that PCM,
+   chunk 2 prompted with chunk 1's text and carried frames; with the
+   661-frame profile stored, only chunk 1 through the prefix, forked once;
+   time to first audio beside ``synthesize_stream``'s.
 
 Then the whole run's wall time, one JSON line of per-kernel records
 (main-path shapes, B = 1; the sampler on bf16-rounded logits; ``launches``
 those of the first int8 ``synthesize`` call, the head-less slow stack's
-those of the untied-head call, each read from counts set to 0 just before
-it; ``launches_by_path`` each path's launches summed over its checked runs
-in phases 5-9, each run read from its own zeroed counts: main (every
-``synthesize`` call of phases 5 and 6), stream, batch and serve (int8 and
-bf16)) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+those of the untied-head call, the "s8" variant's those of the A/B run,
+each read from counts set to 0 just before it; ``launches_by_path`` each
+path's launches summed over its checked runs, each run read from its own
+zeroed counts: ab (the A/B run), main (every ``synthesize`` call of phases
+5 and 6), stream, batch, serve (int8 and bf16), encode (the call with the
+encoded profile) and long) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside this file, it exits non-zero and
 prints no result.
 """
@@ -207,6 +242,23 @@ SLOW_CASES = [
 ]
 SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by phase
 HEADLESS = "slow_stack_step (no head)"  # the slow-stack kernel for an untied head
+S8 = "fast_decoder_s8"  # the fast decoder's "s8" dequant variant
+S8_BATCHES = (1, 4, 8, 16)
+S8_VALUE_TOL = 0.03  # "s8" logits against "value": tests/test_fast_decoder.py's 3% of the largest
+# The "s8" kernel against its plain version, row by quantized row
+# (testing.s8_decision_margins): a row's int8 values may differ only by one
+# step at an x / sc within S8_TIE_MARGIN of a .5 boundary (the two sides'
+# f32 norms, softmax and sigmoid differ in the last bits, a few f32 steps of
+# x / sc, which is below 127: 7.6e-6 each); the positions before such a
+# row are held within S8_HELD_TOL of
+# the largest logit (S8_TINY_TOL at the tiny config, the CPU test's bound),
+# at most S8_MAX_EXCUSED of them may be excused, and each stream must be
+# bit-equal to the kernel on that stream alone.
+S8_TIE_MARGIN = 1e-4
+S8_HELD_TOL = 1e-5
+S8_TINY_TOL = 1e-4
+S8_MAX_EXCUSED = 0.5
+S8_TINY_BATCHES = (1, 4)
 # each path's launches per kernel, summed over its checked runs (each read
 # from counts set to 0 just before that run): main, stream, batch, serve
 PATH_LAUNCHES: dict[str, dict[str, int]] = {}
@@ -224,6 +276,7 @@ TINY_BUCKETS = (16, 32, 64)
 # CUDA-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 
 
@@ -628,7 +681,149 @@ def fast_inputs(cfg, B: int, gen, dev, per_row: bool = False):
     return h, a0, prev, g, t, p, r
 
 
-def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = False):
+def s8_against_value(kernel, plain, limit: float | None = None) -> str:
+    """The "s8" logits against the "value" logits on the same inputs, for
+    the kernels (``kernel``: (codes_s8, logits_s8, codes_v, logits_v)) and
+    for the plain versions (``plain``, the same), per stream up to and
+    including the first position where either pair's codes differ (later
+    positions embed other codes), as a share of the value logits' largest
+    magnitude.  The kernels' distance must be within REL_TOL of the plain
+    pair's on the same inputs, and within ``limit`` when it is given; its
+    yes/no against S8_VALUE_TOL is printed (the reference's own "s8" mode
+    sits further than that from "value" at S1-mini width).  Returns a note."""
+    cs_k, ls_k, cv_k, lv_k = kernel
+    cs_p, ls_p, cv_p, lv_p = plain
+    dev_k = dev_p = 0.0
+    compared = 0
+    for b in range(cv_k.shape[0]):
+        diff = ((cs_k[b] != cv_k[b]).cpu() | (cs_p[b] != cv_p[b]).cpu()).nonzero()
+        n = int(diff[0]) + 1 if len(diff) else cv_k.shape[1]
+        dev_k = max(dev_k, (ls_k[b, :n] - lv_k[b, :n]).abs().max().item())
+        dev_p = max(dev_p, (ls_p[b, :n] - lv_p[b, :n].to(ls_p.device)).abs().max().item())
+        compared += n
+    dev_k /= lv_k.abs().max().item()
+    dev_p /= lv_p.abs().max().item()
+    if not abs(dev_k - dev_p) <= REL_TOL or (limit is not None and not dev_k <= limit):
+        fail(f"{S8}: logits {dev_k:.4f} of the value kernel's largest from them, the plain "
+             f"versions {dev_p:.4f} (at most {REL_TOL} apart"
+             + (f", and within {limit})" if limit is not None else ")"))
+    return (f"against value: kernels {dev_k:.4f} of the largest logit apart, plain versions "
+            f"{dev_p:.4f}, over {compared} positions (within {REL_TOL} of each other; within "
+            f"{S8_VALUE_TOL}: {'yes' if dev_k <= S8_VALUE_TOL else 'no'}), codes equal at "
+            f"{int((cs_k == cv_k).sum())} of {cs_k.numel()}; ")
+
+
+def check_s8_rows(params, cfg, rope, args, codes, logits, label: str, held_tol: float,
+                  plain_params=None, plain_rope=None):
+    """The "s8" kernel's call on ``args`` (h, a0, prev, g, t, p, r), which
+    gave (``codes``, ``logits``), against its plain version, row by quantized
+    row (:func:`testing.s8_decision_margins`: a differing row only one step
+    at a tie, S8_TIE_MARGIN; earlier positions within ``held_tol`` of the
+    largest logit; the excused positions counted, for
+    :func:`gate_s8_excused`), the plain version run with
+    ``plain_params``/``plain_rope`` on their device when given; and every
+    stream bit-equal to the kernel on that stream alone.  Returns (margins,
+    plain codes, plain logits, a note)."""
+    import torch
+
+    from fish_tts_tpu_torch.ops import fast_decoder as fd
+    from fish_tts_tpu_torch.testing import s8_decision_margins, s8_plain_trace
+
+    B, dev = codes.shape[0], codes.device
+    for b in range(B if B > 1 else 0):
+        alone = fd.fast_decode_frame(params, cfg, rope, *(a[b:b + 1] for a in args),
+                                     window=WINDOW, dequant="s8")
+        if not (torch.equal(alone[0], codes[b:b + 1]) and torch.equal(alone[1], logits[b:b + 1])):
+            fail(f"{S8} {label}: stream {b} differs from the kernel on that stream alone")
+    layout = fd.s8_trace_layout(cfg)
+    rows = torch.zeros((len(layout), B, fd.s8_trace_width(cfg)), dtype=torch.int8, device=dev)
+    scales = torch.zeros((len(layout), B), device=dev)
+    fd.s8_trace = (rows, scales)
+    try:
+        traced = fd.fast_decode_frame(params, cfg, rope, *args, window=WINDOW, dequant="s8")
+    finally:
+        fd.s8_trace = None
+    if not (torch.equal(traced[0], codes) and torch.equal(traced[1], logits)):
+        fail(f"{S8} {label}: the traced call differs from the untraced one")
+    pdev = dev if plain_params is None else plain_rope.device
+    with s8_plain_trace() as plain_rows:
+        codes_p, logits_p = fd.fast_decode_frame_plain(
+            plain_params or params, cfg, rope if plain_rope is None else plain_rope,
+            *(a.to(pdev) for a in args), window=WINDOW, dequant="s8")
+    tol = held_tol * logits_p.abs().max().item()
+    h, a0, prev, g, t, p, r = args
+    m = s8_decision_margins(cfg, codes, codes_p, logits, logits_p, g, t, p, tol, rows, scales,
+                            plain_rows, S8_TIE_MARGIN)
+    if m["failures"]:
+        fail(f"{S8} {label}: " + "; ".join(m["failures"][:8]))
+    m["positions"] = codes.numel()
+    wit = "; ".join(f"stream {b} row {t} {key}: {n} value(s) one step apart at tie distance "
+                    f"<= {d:.3g}" for b, t, key, n, d in m["witnesses"])
+    note = (f"every stream bit-equal to the kernel on it alone; {len(layout)} quantized rows a "
+            f"stream against the plain version's: scales within {m['scale_err']:.2g}, "
+            f"{len(m['witnesses'])} stream(s) with a step at a tie (margin {S8_TIE_MARGIN}"
+            + (f": {wit}" if wit else "") + f"), {m['excused']} of {codes.numel()} positions "
+            f"excused from there on, {m['compared']} held within {tol:.3g} ({held_tol} of the "
+            f"largest; max abs err {m['max_abs_err']:.3g}); ")
+    return m, codes_p, logits_p, note
+
+
+def gate_s8_excused(label: str, margins: list[dict]) -> str:
+    """At most S8_MAX_EXCUSED of all the positions of ``margins`` (from
+    :func:`check_s8_rows`) excused.  Returns a note."""
+    excused = sum(m["excused"] for m in margins)
+    positions = sum(m["positions"] for m in margins)
+    if not excused <= S8_MAX_EXCUSED * positions:
+        fail(f"{S8} {label}: {excused} of {positions} positions excused (at most "
+             f"{S8_MAX_EXCUSED:.0%})")
+    return (f"{S8} {label}: {excused} of {positions} positions excused after a step at a tie "
+            f"(at most {S8_MAX_EXCUSED:.0%})")
+
+
+def check_s8_tiny(dev) -> None:
+    """The "s8" kernel at the tiny config (int8 f32 weights) on the card
+    against its plain version on the CPU, which the CPU tests hold against
+    the JAX package: :func:`check_s8_rows` at S8_TINY_TOL, and within
+    S8_VALUE_TOL of the "value" kernel (the JAX test's bound at its tiny
+    config), at B = S8_TINY_BATCHES; at most S8_MAX_EXCUSED of all their
+    positions excused."""
+    import torch
+
+    from fish_tts_tpu_torch.models.dual_ar import make_rope_tables
+    from fish_tts_tpu_torch.ops import fast_decoder as fd
+    from fish_tts_tpu_torch.testing import make_tiny_bundle
+    from fish_tts_tpu_torch.utils.checkpoint import to_device
+    from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+
+    cfg, params, *_ = make_tiny_bundle(SEED)
+    params = quantize_lm_params(params)
+    card = to_device(params, dev)
+    rope, rope_card = make_rope_tables(cfg)["fast"], make_rope_tables(cfg, device=dev)["fast"]
+    if not fd.supports(cfg, card, max(S8_TINY_BATCHES), WINDOW, dequant="s8"):
+        fail(f"{S8} tiny: the kernel does not support the tiny config")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    margins = []
+    for B in S8_TINY_BATCHES:
+        args = tuple(a.to(dev) for a in fast_inputs(cfg, B, gen, "cpu"))
+        codes, logits = fd.fast_decode_frame(card, cfg, rope_card, *args, window=WINDOW,
+                                             dequant="s8")
+        m, codes_p, logits_p, note = check_s8_rows(card, cfg, rope_card, args, codes, logits,
+                                                   f"tiny B={B}", S8_TINY_TOL, params, rope)
+        margins.append(m)
+        value = fd.fast_decode_frame(card, cfg, rope_card, *args, window=WINDOW)
+        value_p = fd.fast_decode_frame_plain(params, cfg, rope, *(a.cpu() for a in args),
+                                             window=WINDOW)
+        note += s8_against_value((codes, logits, *value), (codes_p, logits_p, *value_p),
+                                 limit=S8_VALUE_TOL)
+        print(f"kernel {S8} tiny B={B} on the card against the CPU's plain version: {note}",
+              flush=True)
+    print(f"kernel {gate_s8_excused('tiny', margins)}", flush=True)
+
+
+def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = False,
+                       dequant: str = "value"):
+    """The fast decoder in ``dequant`` mode against its plain version in the
+    same mode; the "s8" variant also against the "value" kernel."""
     import torch
 
     from fish_tts_tpu_torch.ops import fast_decoder as fd
@@ -637,25 +832,36 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = Fals
     K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
     h, a0, prev, g, t, p, r = fast_inputs(cfg, B, gen, dev, per_row)
     args = (params, cfg, rope, h, a0, prev, g, t, p, r)
+    name = S8 if dequant == "s8" else "fast_decode_frame"
 
     def kern(skip=None):
-        return fd.fast_decode_frame(*args, window=WINDOW, skip=skip)
+        return fd.fast_decode_frame(*args, window=WINDOW, skip=skip, dequant=dequant)
+
+    def plain(skip=None):
+        return fd.fast_decode_frame_plain(*args, window=WINDOW, skip=skip, dequant=dequant)
 
     codes, logits = kern()
     codes2, logits2 = kern()
-    codes_p, logits_p = fd.fast_decode_frame_plain(*args, window=WINDOW)
     torch.cuda.synchronize()
     if not (torch.equal(codes, codes2) and torch.equal(logits, logits2)):
-        fail(f"fast_decode_frame B={B}: two calls on the same inputs differ")
-    tol = REL_TOL * logits_p.abs().max().item()
-    m = fast_decision_margins(codes, codes_p, logits, logits_p, g, t, p, tol)
-    if m["failures"]:
-        fail(f"fast_decode_frame B={B}: " + "; ".join(m["failures"]))
-    skip_note = check_skip_flag(
-        f"fast_decode_frame B={B}", kern,
-        lambda f: fd.fast_decode_frame_plain(*args, window=WINDOW, skip=f), (codes, logits), dev)
+        fail(f"{name} B={B}: two calls on the same inputs differ")
+    value_note = ""
+    if dequant == "s8":
+        m, codes_p, logits_p, value_note = check_s8_rows(
+            params, cfg, rope, (h, a0, prev, g, t, p, r), codes, logits, f"B={B}", S8_HELD_TOL)
+        tol = S8_HELD_TOL * logits_p.abs().max().item()
+        value_note += s8_against_value(
+            (codes, logits, *fd.fast_decode_frame(*args, window=WINDOW)),
+            (codes_p, logits_p, *fd.fast_decode_frame_plain(*args, window=WINDOW)))
+    else:
+        codes_p, logits_p = plain()
+        tol = REL_TOL * logits_p.abs().max().item()
+        m = fast_decision_margins(codes, codes_p, logits, logits_p, g, t, p, tol)
+        if m["failures"]:
+            fail(f"{name} B={B}: " + "; ".join(m["failures"]))
+    skip_note = check_skip_flag(f"{name} B={B}", kern, plain, (codes, logits), dev)
     ms = time_ms(kern, 20)
-    plain_ms = time_ms(lambda: fd.fast_decode_frame_plain(*args, window=WINDOW), 3, warm=1)
+    plain_ms = time_ms(plain, 3, warm=1)
     fl = params["fast_layers"]
     weights = [fl[k][part] for k in ("wqkv", "wo", "w1", "w3", "w2") for part in ("q", "s")]
     head_rows = params["fast_output"]["q"][:Vr]
@@ -667,17 +873,19 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = Fals
     n_weights = sum(fl[k]["q"].numel() for k in ("wqkv", "wo", "w1", "w3", "w2"))
     ops = (2 * B * K * n_weights + 2 * B * (K - 1) * head_rows.numel()
            + 2 * B * (K - 1) * Vr * Vr)  # the pairwise top-p compares and adds
-    bms, by = bound(read + written, ops, BF16_OPS_PER_S)
+    # the products at the rate of their operands' type: bf16 x int8 on the
+    # bf16 tensor cores, s8 x s8 at the int8 rate
+    bms, by = bound(read + written, ops, INT8_OPS_PER_S if dequant == "s8" else BF16_OPS_PER_S)
     # the bound if the layers stream from device memory once per position
     streamed_ms = (read + (K - 1) * nbytes(*weights) + written) / HBM_BYTES_PER_S * 1e3
     if not per_row:
         for line in fast_phase_breakdown(kern, cfg, dev):
-            print(f"kernel fast_decode_frame B={B} phases: {line}", flush=True)
+            print(f"kernel {name} B={B} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=m["max_abs_err"],
+                max_abs_err=m["max_abs_err"], margins=m,
                 note=(f"codes equal but for {m['knife_edges']} knife edge(s), two calls "
                       f"bit-equal, logits max abs err {m['max_abs_err']:.3g} "
-                      f"(tol {tol:.3g}) over {m['compared']} positions; "
+                      f"(tol {tol:.3g}) over {m['compared']} positions; {value_note}"
                       f"streamed-per-position bound {streamed_ms:.4f} ms; {skip_note}"))
 
 
@@ -690,6 +898,8 @@ KERNELS = [
      "fish_tts_tpu/ops/fast_decoder.py:686"),
     # the variant for an untied head (the JAX kernel's with_head = False, :405, :544)
     (HEADLESS, "fish_tts_tpu_torch/csrc/slow_stack.cu", "fish_tts_tpu/ops/slow_stack.py:520"),
+    # the "s8" dequant variant (the JAX kernel's dequant="s8", :98, :239-262)
+    (S8, "fish_tts_tpu_torch/csrc/fast_decoder.cu", "fish_tts_tpu/ops/fast_decoder.py:686"),
 ]
 
 
@@ -727,12 +937,47 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
                check_fast_decoder(params, cfg, rope["fast"], B, gen, dev))
     report("fast_decode_frame", f"B=8 {PER_ROW}",
            check_fast_decoder(params, cfg, rope["fast"], 8, gen, dev, per_row=True))
+    for B in S8_BATCHES:
+        report(S8, f"B={B}", check_fast_decoder(params, cfg, rope["fast"], B, gen, dev,
+                                                dequant="s8"))
+    print("kernel " + gate_s8_excused(f"B={'/'.join(map(str, S8_BATCHES))}", [
+        results[S8][f"B={B}"]["margins"] for B in S8_BATCHES]), flush=True)
+    check_s8_tiny(dev)
     untied = dataclasses.replace(cfg, tie_word_embeddings=False)
     for case in slow_cases[:3]:  # B = 1, 4, 16
         report(HEADLESS, case[0], check_slow_stack(params, untied, rope["slow"], case, gen, dev))
     del params
     torch.cuda.empty_cache()
     return results
+
+
+AB_ARGS = ("-b", "1", "8", "16", "-n", "3")
+
+
+def phase_ab() -> None:
+    """The port's A/B entry point of the fast decoder's dequant modes
+    (``python -m fish_tts_tpu_torch.scripts.ab_fast_decoder``) once, with
+    AB_ARGS, its lines printed; its launches, read from counts set to 0
+    just before it, must be one per frame it ran, "value" and "scratch" on
+    the "value" variant and "s8" on its own (the path "ab")."""
+    import torch
+
+    from fish_tts_tpu_torch.scripts import ab_fast_decoder as ab
+
+    zero_counts()
+    t = time.perf_counter()
+    records = ab.main(list(AB_ARGS))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    batches = AB_ARGS[AB_ARGS.index("-b") + 1:AB_ARGS.index("-n")]
+    runs = len(batches) * (1 + int(AB_ARGS[-1])) * ab.FRAMES  # one warm-up run each
+    want = {"sample_slow": 0, "slow_stack_step": 0, HEADLESS: 0,
+            "fast_decode_frame": 2 * runs, S8: runs}
+    if launches != want or len(records) != 3 * len(batches):
+        fail(f"ab: {len(records)} lines, kernel launches {launches}, want {want}")
+    tally("ab", launches)
+    print(f"ab: {len(records)} lines in {time.perf_counter() - t:.1f} s; kernel launches "
+          f"{json.dumps(launches)}", flush=True)
 
 
 # --- phase 4: the decode graph against the eager loop ---------------------------
@@ -1055,6 +1300,7 @@ def phase_main(dev, profile_dir=None):
 
     seen = observe(tts)
     launches = synthesize_once(tts, seen, "synthesize")
+    first_wav = seen["wav"]
     synthesize_once(tts, seen, f"synthesize with a {REF_FRAMES}-frame reference",
                     references=[reference_profile(tts._cfg)])
     compare_routes(tts, seen)
@@ -1064,7 +1310,9 @@ def phase_main(dev, profile_dir=None):
     phase_stream(tts, seen, "int8")
     phase_batch(tts, "int8")
     phase_serve(tts, "int8")
-    phase_http(tts)
+    profile = phase_encode(tts, seen, first_wav)
+    phase_http(tts, first_wav, profile)
+    phase_long(tts)
     return launches
 
 
@@ -1201,6 +1449,7 @@ def zero_counts() -> None:
     for m in (sampler_kernel, slow_stack, fast_decoder):
         m.launches = 0
     slow_stack.headless_launches = 0
+    fast_decoder.launches_s8 = 0
     decode.graph_replays = decode.eager_frames = 0
 
 
@@ -1209,7 +1458,8 @@ def kernel_counts() -> dict[str, int]:
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
     return {"sample_slow": sampler_kernel.launches, "slow_stack_step": slow_stack.launches,
-            HEADLESS: slow_stack.headless_launches, "fast_decode_frame": fast_decoder.launches}
+            HEADLESS: slow_stack.headless_launches, "fast_decode_frame": fast_decoder.launches,
+            S8: fast_decoder.launches_s8}
 
 
 def stack_counts(cfg, frames: int) -> dict[str, int]:
@@ -1246,7 +1496,7 @@ def route_counts(engine, label: str, min_replays: int, path: str, batch: int = 1
     decoded = replays + eager
     want = {"sample_slow": rt.sampler * (prefills + decoded),
             **stack_counts(engine.cfg, rt.slow_stack * decoded),
-            "fast_decode_frame": rt.fast * (prefills + decoded)}
+            "fast_decode_frame": rt.fast * (prefills + decoded), S8: 0}
     if launches != want or not any(want.values()):
         fail(f"{label}: kernel launches {launches}, the route implies {want}")
     if replays < min_replays or eager:
@@ -1255,10 +1505,12 @@ def route_counts(engine, label: str, min_replays: int, path: str, batch: int = 1
     return launches, replays, rt
 
 
-def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
+def synthesize_once(tts, seen, label: str, references=None, path: str = "main"
+                    ) -> dict[str, int]:
     """One ``synthesize`` call with every kernel's launch count set to 0 just
-    before it; checks the WAV and the launches and prints frames/s and RTF
-    (also left in ``seen["fps"]``).  Returns the launch counts."""
+    before it, counted to ``path``; checks the WAV and the launches and
+    prints frames/s and RTF (also left in ``seen["fps"]``, the WAV in
+    ``seen["wav"]``).  Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -1272,7 +1524,8 @@ def synthesize_once(tts, seen, label: str, references=None) -> dict[str, int]:
     wall = time.perf_counter() - t
     codes, audio = seen["codes"], seen["audio"]
     seen["frames"] = frames = codes.shape[1] + 1  # generate_long strips the final frame
-    launches, replays, rt = route_counts(tts.engine, f"main: {label}", frames - 2, "main")
+    launches, replays, rt = route_counts(tts.engine, f"main: {label}", frames - 2, path)
+    seen["wav"] = wav
 
     hop = tts._vocoder_cfg.frame_length
     with wave.open(io.BytesIO(wav)) as w:
@@ -2260,7 +2513,8 @@ def phase_serve(tts, name: str) -> None:
     pool = rt(slots)
     want = {"sample_slow": pool.sampler * replays + sum(rt(g).sampler for g in rec.prefills),
             **stack_counts(tts._cfg, pool.slow_stack * replays),
-            "fast_decode_frame": pool.fast * replays + sum(rt(g).fast for g in rec.prefills)}
+            "fast_decode_frame": pool.fast * replays + sum(rt(g).fast for g in rec.prefills),
+            S8: 0}
     if launches != want or eager or not replays:
         fail(f"{label}: kernel launches {launches} with {replays} graph replays, {eager} eager "
              f"frames and {len(rec.prefills)} admissions; the routes imply {want}")
@@ -2345,6 +2599,314 @@ def phase_serve(tts, name: str) -> None:
     print(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- phase 10: the codec encoder and long text ---------------------------------------
+
+
+ENCODE_SECONDS = 30  # the synthetic reference: about a 661-frame profile's length
+ENCODE_RUNS = 3  # timed encodes of each WAV, after a first one
+ENCODE_TEXT = "A sentence the smoke synthesized, encoded back into a voice."
+# The card's codes against the CPU's float32 encode: a differing code is
+# excused where the CPU's float64 similarities of the two codebook entries
+# are this close (cosines of normalized 8-dimensional vectors): tight for the
+# codec cast to float32 on the card (convolutions summed in another order),
+# wider for the instance's bf16 codec (bf16 activations through the
+# encoder).  The bf16 limits sit between the bf16 codec's readings (latent
+# 1.04e-2, widest excused gap 0.0119: PERF.md) and a control that must
+# break both, the same encode with every weight rounded to 4 significant
+# bits (``coarse_bf16``).
+VQ_TIE_MARGIN = {"fp32": 1e-3, "bf16": 2.5e-2}
+ENCODE_LATENT_TOL = {"fp32": 1e-3, "bf16": 2.5e-2}  # the latent, relative to its largest
+
+
+def coarse_bf16(t):
+    """A bf16 tensor rounded to 4 significant bits (3 of its 7 mantissa
+    bits, ties away from zero): the encode control's weights."""
+    import torch
+
+    if t.dtype != torch.bfloat16:
+        return t
+    u = (t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF) + 8
+    u = u & 0xFFF0
+    return torch.where(u >= 0x8000, u - 0x10000, u).to(torch.int16).view(torch.bfloat16)
+
+
+def synthetic_wav(seconds: float, rate: int) -> bytes:
+    """A speech-like WAV from a seed: a gliding tone with one overtone under
+    a syllable-rate envelope, plus noise."""
+    import numpy as np
+
+    from fish_tts_tpu_torch.utils.audio import to_wav_bytes
+
+    rng = np.random.default_rng(SEED + 31)
+    t = np.arange(int(seconds * rate)) / rate
+    phase = 2 * np.pi * np.cumsum(140 + 60 * np.sin(2 * np.pi * 0.3 * t)) / rate
+    x = 0.3 * np.sin(phase) + 0.12 * np.sin(2 * phase) + 0.03 * rng.standard_normal(len(t))
+    return to_wav_bytes((x * (0.4 + 0.6 * np.abs(np.sin(2 * np.pi * 2.1 * t)))).astype(
+        np.float32), rate)
+
+
+def phase_encode(tts, seen, wav: bytes):
+    """The codec encoder on ``tts`` (int8: a bf16 codec): ``encode_reference``
+    of ``wav`` (phase 5's first WAV) twice, bit-equal; its latent
+    (``encoder_forward``) and codes against ``dac_encode`` of the same
+    padded audio on the CPU in float32, and the same for the codec cast to
+    float32 on the card: the latent by its largest relative error, the codes
+    equal per frame up to a first differing book that must be a near tie of
+    the CPU's own float64 similarities (VQ_TIE_MARGIN; the count printed),
+    and a control, the bf16 encode with coarse weights (``coarse_bf16``),
+    that must break both bf16 limits.  Then encode times (CUDA-synchronised
+    wall, ENCODE_RUNS after a first call) of ``wav`` and of a synthetic
+    ENCODE_SECONDS WAV with the peak device memory of its encode, and one
+    ``synthesize`` with ``wav``'s profile as the reference.  Returns that
+    profile."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.models import vocoder
+    from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
+    from fish_tts_tpu_torch.testing import vq_decision_margins
+    from fish_tts_tpu_torch.utils import checkpoint as ckpt
+    from fish_tts_tpu_torch.utils.audio import read_wav
+
+    vcfg, dev = tts._vocoder_cfg, tts.device
+    fl, K = vcfg.frame_length, vcfg.num_codebooks
+
+    def timed(w: bytes):
+        times, out = [], None
+        for _ in range(1 + ENCODE_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prof = tts.encode_reference(w, ENCODE_TEXT)
+            times.append((time.perf_counter() - t) * 1e3)
+            if out is not None and not np.array_equal(prof.codes, out.codes):
+                fail("encode: two encodes of one WAV differ")
+            out = prof
+        return out, times
+
+    profile, times = timed(wav)
+    audio = read_wav(wav, tts.sample_rate)
+    n = -(-len(audio) // fl)
+    if profile.codes.shape != (K, n) or profile.codes.dtype != np.int64:
+        fail(f"encode: codes {profile.codes.shape} {profile.codes.dtype} for {len(audio)} "
+             f"samples, want ({K}, {n}) int64")
+    x = np.zeros((1, 1, _vocoder_bucket(n) * fl), np.float32)
+    x[0, 0, :len(audio)] = audio
+    x = torch.from_numpy(x)
+    t = time.perf_counter()
+    cpu32 = ckpt.to_device(tts._vocoder_params, "cpu", torch.float32)
+    lat_cpu = vocoder.encoder_forward(cpu32["encoder"], vcfg, x)
+    z_cpu = vocoder.quantizer_latent(cpu32["quantizer"], vcfg, lat_cpu)
+    codes_cpu = vocoder.vq_encode(cpu32["quantizer"], z_cpu)[:, :, :n]
+    cpu_s = time.perf_counter() - t
+    card32 = ckpt.to_device(tts._vocoder_params, dev, torch.float32)
+    notes = []
+    for name, params, codes in (
+            ("bf16", tts._vocoder_params, torch.from_numpy(profile.codes[None])),
+            ("fp32", card32, vocoder.dac_encode(card32, vcfg, x.to(dev))[:, :, :n])):
+        dtype = params["encoder"]["stem"]["w"].dtype
+        with torch.no_grad():
+            lat = vocoder.encoder_forward(params["encoder"], vcfg, x.to(dev, dtype))
+        lat_err = rel_err(lat.cpu(), lat_cpu)[1]
+        m = vq_decision_margins(codes, codes_cpu, cpu32["quantizer"], z_cpu[:, :, :n],
+                                VQ_TIE_MARGIN[name])
+        if m["failures"] or not lat_err <= ENCODE_LATENT_TOL[name]:
+            fail(f"encode {name}: latent rel err {lat_err:.3g} (tol "
+                 f"{ENCODE_LATENT_TOL[name]}); " + "; ".join(m["failures"][:8]))
+        equal = int((codes.cpu() == codes_cpu).all(dim=1).sum())
+        notes.append(f"{name} codec: latent rel err {lat_err:.3g} (tol "
+                     f"{ENCODE_LATENT_TOL[name]}), {equal} of {n} frames' codes equal, "
+                     f"{m['near_ties']} differing first at a near tie (widest gap "
+                     f"{m['worst_gap']:.3g}, margin {VQ_TIE_MARGIN[name]})")
+    # the control: the bf16 encode with coarse weights must break both limits
+    coarse = ckpt._tree_map(coarse_bf16, tts._vocoder_params)
+    with torch.no_grad():
+        lat = vocoder.encoder_forward(coarse["encoder"], vcfg, x.to(dev, torch.bfloat16))
+        codes = vocoder.vq_encode(coarse["quantizer"],
+                                  vocoder.quantizer_latent(coarse["quantizer"], vcfg, lat))
+    lat_err = rel_err(lat.cpu(), lat_cpu)[1]
+    m = vq_decision_margins(codes[:, :, :n], codes_cpu, cpu32["quantizer"], z_cpu[:, :, :n],
+                            VQ_TIE_MARGIN["bf16"])
+    gaps = [float(f.split("gap ")[1].split(" ")[0]) for f in m["failures"]]
+    note = (f"control (bf16 weights at 4 significant bits): latent rel err {lat_err:.3g}, "
+            f"{len(m['failures'])} frames differing first beyond the margin (gaps up to "
+            f"{max(gaps, default=0.0):.3g}), {m['near_ties']} at a near tie")
+    if not (lat_err > ENCODE_LATENT_TOL["bf16"] and m["failures"]):
+        fail(f"encode: the bf16 limits would pass the {note}")
+    notes.append(note)
+    del card32, cpu32, coarse
+    torch.cuda.empty_cache()
+    print(f"encode: the {n}-frame WAV of phase 5 ({len(audio) / tts.sample_rate:.2f} s) on the "
+          f"card against the CPU's float32 encode ({cpu_s:.1f} s on the CPU): "
+          + "; ".join(notes), flush=True)
+    print(f"encode: {n} frames in {statistics.median(times[1:]):.1f} ms (median of "
+          f"{ENCODE_RUNS} after a first call of {times[0]:.1f} ms; bucket "
+          f"{_vocoder_bucket(n)} frames); two encodes bit-equal", flush=True)
+
+    long_wav = synthetic_wav(ENCODE_SECONDS, tts.sample_rate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    long_profile, times = timed(long_wav)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_long = -(-ENCODE_SECONDS * tts.sample_rate // fl)
+    if long_profile.codes.shape != (K, n_long):
+        fail(f"encode: {long_profile.codes.shape} codes for {ENCODE_SECONDS} s")
+    print(f"encode: a synthetic {ENCODE_SECONDS} s WAV, {n_long} frames (bucket "
+          f"{_vocoder_bucket(n_long)}), in {statistics.median(times[1:]):.1f} ms (median of "
+          f"{ENCODE_RUNS} after a first call of {times[0]:.1f} ms); peak device memory "
+          f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before it", flush=True)
+    synthesize_once(tts, seen, f"synthesize with the encoded {n}-frame profile",
+                    references=[profile], path="encode")
+    return profile
+
+
+LONG_TEXT = ("The first sentence of a longer passage is spoken here. A second sentence "
+             "follows it closely after. And then a third one ends the passage for today.")
+LONG_MAX_CHARS = 80
+LONG_TOKENS = 40  # frames per text chunk: the random weights never sample EOS
+LONG_CARRY = 64  # carry_frames, synthesize_long's default
+LONG_RUNS = 3  # timed calls of each stream, after the checked ones
+
+
+def phase_long(tts) -> None:
+    """Long text on ``tts`` (int8): ``synthesize_long_stream`` of LONG_TEXT,
+    which ``split_text(max_chars=LONG_MAX_CHARS)`` cuts into 3 chunks, at
+    LONG_TOKENS frames a chunk, warmed once.  Checked, with the engine
+    reseeded: 3 chunk calls, each kernel's launches those of the route with
+    every decode frame a graph replay (path "long"), the PCM 2048 samples a
+    frame of every chunk, ``synthesize_long``'s WAV samples after the same
+    reseed equal to that PCM, and chunk 2 prompted with chunk 1's text and
+    its last frames but the EOS frame (its prefill length that of the
+    prompt built from them).  Then with the 661-frame profile stored: only
+    chunk 1 through the prefix, forked once, chunk 2 prefilling the profile
+    and the carry.  Prints the time to first audio beside
+    ``synthesize_stream``'s (median of LONG_RUNS calls each)."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models.prompt import build_prompt
+    from fish_tts_tpu_torch.utils.text import split_text
+
+    engine, hop = tts.engine, tts._vocoder_cfg.frame_length
+    chunks = split_text(LONG_TEXT, LONG_MAX_CHARS)
+    if len(chunks) != 3:
+        fail(f"long: split_text gave {len(chunks)} chunks, want 3")
+    kw = dict(max_chars=LONG_MAX_CHARS, max_tokens_per_chunk=LONG_TOKENS,
+              carry_frames=LONG_CARRY)
+    t = time.perf_counter()
+    list(tts.synthesize_long_stream(LONG_TEXT, **kw))  # warm: graph captures
+    warm_s = time.perf_counter() - t
+
+    calls, prefills, forks = [], [], []
+    real_gen, real_prefill, real_fork = engine.generate_long, decode.prefill, engine._fork_prefix
+
+    def gen_spy(text, **k):
+        codes = []
+        calls.append((text, list(k["prompt_text"]), [np.asarray(c) for c in k["prompt_tokens"]],
+                      k["use_prefix_cache"], codes))
+        for r in real_gen(text, **k):
+            if r.action == "sample":
+                codes.append(r.codes)
+            yield r
+
+    def prefill_spy(params, rope, state, prompt, lengths, *a, **k):
+        prefills.append(int(lengths[0]))
+        return real_prefill(params, rope, state, prompt, lengths, *a, **k)
+
+    def fork_spy(*a, **k):
+        forks.append(1)
+        return real_fork(*a, **k)
+
+    def run(references=None):
+        calls.clear()
+        prefills.clear()
+        forks.clear()
+        engine.reseed(SEED + 40)
+        zero_counts()
+        t = time.perf_counter()
+        first, pcm = None, []
+        for c in tts.synthesize_long_stream(LONG_TEXT, references=references, **kw):
+            first = time.perf_counter() - t if first is None else first
+            pcm.append(c)
+        torch.cuda.synchronize()
+        return pcm, first, time.perf_counter() - t
+
+    def prompt_len(text, texts, codes) -> int:
+        return build_prompt(engine.tokenizer, text, engine.cfg.num_codebooks,
+                            prompt_texts=texts, prompt_codes=codes).values.shape[1]
+
+    engine.generate_long, engine._fork_prefix = gen_spy, fork_spy
+    try:
+        with mock.patch.object(decode, "prefill", prefill_spy):
+            pcm, first, wall = run()
+            per_call = [sum(c.shape[1] for c in call[4]) for call in calls]
+            frames = sum(per_call)
+            launches, replays, _ = route_counts(engine, "long", 3 * (LONG_TOKENS - 1), "long",
+                                                prefills=3)
+            if len(calls) != 3 or [c[0] for c in calls] != chunks:
+                fail(f"long: chunk calls {[c[0] for c in calls]}, want {chunks}")
+            sizes = [len(c) for c in pcm]
+            if any(n % (2 * hop) for n in sizes) or sum(sizes) != 2 * hop * frames:
+                fail(f"long: PCM chunks of {sizes} bytes for {frames} frames")
+            first_codes = np.concatenate(calls[0][4], axis=1)
+            carry = first_codes[:, :-1][:, -LONG_CARRY:]
+            _, texts, codes, prefix, _ = calls[1]
+            if texts != [chunks[0]] or len(codes) != 1 or not np.array_equal(codes[0], carry) \
+                    or prefix or prefills[1] != prompt_len(chunks[1], texts, codes):
+                fail(f"long: chunk 2 prompted with {texts}, codes "
+                     f"{[c.shape for c in codes]} (want the {carry.shape[1]} frames of chunk 1 "
+                     f"but its last), prefix {prefix}, prefill of {prefills[1]} tokens")
+            engine.reseed(SEED + 40)
+            wav = tts.synthesize_long(LONG_TEXT, **kw)
+            with wave.open(io.BytesIO(wav)) as w:
+                samples = w.readframes(w.getnframes())
+            if samples != b"".join(pcm):
+                fail(f"long: synthesize_long's WAV ({len(samples)} bytes of samples) differs "
+                     f"from the stream's PCM ({sum(sizes)} bytes)")
+            print(f"long: {len(chunks)} chunks of {[len(c) for c in chunks]} characters, "
+                  f"{per_call} frames; PCM chunks of "
+                  f"{[n // (2 * hop) for n in sizes]} frames; synthesize_long's WAV samples "
+                  f"equal; chunk 2 prompted with chunk 1's text and {carry.shape[1]} carried "
+                  f"frames ({prefills[1]}-token prefill); kernel launches "
+                  f"{json.dumps(launches)}, {replays} graph replays, 0 eager; warm-up call "
+                  f"{warm_s:.2f} s, checked call {wall:.2f} s", flush=True)
+
+            profile = reference_profile(tts._cfg)
+            tts.set_references([profile])
+            try:
+                run()
+            finally:
+                tts.clear_references()
+            flags = [c[3] for c in calls]
+            _, texts, codes, _, _ = calls[1]
+            carry = np.concatenate(calls[0][4], axis=1)[:, :-1][:, -LONG_CARRY:]
+            want = prompt_len(chunks[1], [profile.text, chunks[0]], [profile.codes, carry])
+            if flags != [True, False, False] or len(forks) != 1 or texts != [
+                    profile.text, chunks[0]] or prefills[1] != want:
+                fail(f"long with the stored profile: prefix flags {flags}, {len(forks)} forks, "
+                     f"chunk 2 prompted with {texts}, a prefill of {prefills[1]} tokens (want "
+                     f"{want})")
+            print(f"long with the stored {REF_FRAMES}-frame profile: chunk 1 through the prefix "
+                  f"(prefill of {prefills[0]} tokens), forked once; chunks 2-3 prefill the "
+                  f"profile and the carry ({prefills[1]} and {prefills[2]} tokens)", flush=True)
+    finally:
+        engine.generate_long, engine._fork_prefix = real_gen, real_fork
+
+    long_ttfa, stream_ttfa = [], []
+    for _ in range(LONG_RUNS):
+        long_ttfa.append(run()[1] * 1e3)
+        t, first = time.perf_counter(), None
+        for _ in tts.synthesize_stream(TEXT, max_tokens=LONG_TOKENS):
+            first = time.perf_counter() - t if first is None else first
+        torch.cuda.synchronize()
+        stream_ttfa.append(first * 1e3)
+    print(f"long: time to first audio {statistics.median(long_ttfa):.1f} ms "
+          f"({[round(x, 1) for x in long_ttfa]}), synthesize_stream's "
+          f"{statistics.median(stream_ttfa):.1f} ms ({[round(x, 1) for x in stream_ttfa]}); "
+          f"medians of {LONG_RUNS} calls each", flush=True)
+
+
 def http_post(addr, path: str, body: dict):
     import http.client
 
@@ -2356,23 +2918,27 @@ def http_post(addr, path: str, body: dict):
     return out
 
 
-def http_get(addr, method: str, path: str):
+def http_get(addr, method: str, path: str, body: str | None = None):
     import http.client
 
-    conn = http.client.HTTPConnection(*addr, timeout=60)
-    conn.request(method, path, "{}" if method == "PUT" else None)
+    conn = http.client.HTTPConnection(*addr, timeout=120)
+    conn.request(method, path, body)
     r = conn.getresponse()
     out = r.status, r.read()
     conn.close()
     return out
 
 
-def phase_http(tts) -> None:
+def phase_http(tts, voice_wav: bytes, profile) -> None:
     """``serving.http.make_server`` on ``tts`` on loopback with 4 slots: two
     concurrent ``POST /synthesize`` (L16 and WAV), each PCM equal to a
     ``ServeSession``'s with the same requests; ``POST /v1/audio/speech``
-    (WAV); ``GET /stats`` and ``/metrics``; ``PUT /voices/x`` answering
-    501; then the driver closed and the server shut down."""
+    (WAV); ``GET /stats`` and ``/metrics``; ``PUT /voices/smoke`` with
+    ``voice_wav`` (``profile`` is its encode), then ``GET /voices`` lists it and a
+    ``POST /synthesize`` with that voice gives the PCM of a
+    ``ServeSession`` request with ``profile`` and the same seed; then the
+    driver closed and the server shut down."""
+    import base64
     import threading
 
     from fish_tts_tpu_torch.serving.http import make_server
@@ -2422,10 +2988,27 @@ def phase_http(tts) -> None:
         status, body = http_get(addr, "GET", "/stats")
         stats = json.loads(body)
         m_status, metrics = http_get(addr, "GET", "/metrics")
-        v_status, _ = http_get(addr, "PUT", "/voices/x")
         if status != 200 or stats["completed"] < 3 or m_status != 200 or \
-                b"fish_tts_completed " not in metrics or v_status != 501:
-            fail(f"http: /stats {status} {stats}, /metrics {m_status}, PUT /voices {v_status}")
+                b"fish_tts_completed " not in metrics:
+            fail(f"http: /stats {status} {stats}, /metrics {m_status}")
+        # a voice registered from a WAV, then spoken
+        t_put = time.perf_counter()
+        v_status, v_body = http_get(addr, "PUT", "/voices/smoke", json.dumps(
+            {"wav_b64": base64.b64encode(voice_wav).decode(), "text": profile.text}))
+        put_s = time.perf_counter() - t_put
+        l_status, listed = http_get(addr, "GET", "/voices")
+        frames = profile.codes.shape[1]
+        if (v_status, json.loads(v_body)) != (200, {"voice": "smoke", "frames": frames}) or \
+                (l_status, json.loads(listed)) != (200, {"voices": ["smoke"]}):
+            fail(f"http: PUT /voices/smoke {v_status} {v_body!r}, GET /voices {l_status} "
+                 f"{listed!r}")
+        voiced = {"text": SHORT_TEXT, "voice": "smoke", "seed": SEED + 203, "max_new_tokens": 40}
+        status, _, _, voiced_pcm = http_post(addr, "/synthesize", voiced)
+        sess.submit(SHORT_TEXT, references=[profile], seed=SEED + 203, max_new_tokens=40)
+        want_voiced = b"".join(ev.pcm for ev in sess.run())
+        if status != 200 or not voiced_pcm or voiced_pcm != want_voiced:
+            fail(f"http: /synthesize with the registered voice answered {status}, "
+                 f"{len(voiced_pcm)} bytes, a session's PCM {len(want_voiced)} bytes")
     finally:
         clean = driver.close()
         srv.shutdown()
@@ -2435,8 +3018,9 @@ def phase_http(tts) -> None:
     print(f"http: two concurrent /synthesize (L16 {len(pcm[0])} bytes, WAV {len(got[1][3])} "
           f"bytes) equal to a ServeSession's PCM; /v1/audio/speech WAV {len(wav)} bytes; "
           f"/stats {json.dumps(stats)}; /metrics {metrics.count(b'# TYPE')} gauges; "
-          f"PUT /voices 501; driver and server stopped; {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"PUT /voices/smoke registered a {frames}-frame voice in {put_s:.2f} s, GET /voices "
+          f"lists it, /synthesize with it {len(voiced_pcm)} bytes equal to a ServeSession's; "
+          f"driver and server stopped; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2478,9 +3062,11 @@ def main() -> int:
           flush=True)
 
     results = phase_kernels(dev)
+    phase_ab()
     phase_graph(dev)
     launches = phase_main(dev, args.profile)
     launches[HEADLESS] = phase_float(dev, args.profile)
+    launches[S8] = PATH_LAUNCHES["ab"][S8]  # the "s8" variant's path: the A/B entry point
 
     print(f"smoke: {time.perf_counter() - t_start:.1f} s from start to end, the kernels' build "
           f"included", flush=True)

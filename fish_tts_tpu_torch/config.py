@@ -235,7 +235,7 @@ class VocoderConfig:
 # EngineConfig fields whose code path the port does not have yet, with the
 # only value it accepts.
 _UNPORTED_ENGINE_FIELDS = {
-    "tp_size": 1,            # multi-device sharding (ROADMAP.md §1.11)
+    "tp_size": 1,            # multi-device sharding (ROADMAP.md §1, "Multi-device")
     "dp_size": 1,
 }
 

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas kernel fish_tts_tpu/ops/fast_decoder.py
 // ::_fast_decode_frame (body _make_kernel :116-428, fori_loop :423,
-// pallas_call :686, "value" dequant mode).  Position 0 runs the fast layers
+// pallas_call :686) in its "value" and "s8" dequant modes (DEQUANT_MODES
+// :98, the "s8" branch :239-262), one instantiation each.  Position 0 runs the fast layers
 // on the projected slow hidden state and only fills the per-frame K/V
 // cache.  Each position cb = 1..K-1 embeds the previous code (int8 row x row
 // scale), runs the layers with causal attention over the positions so far,
@@ -11,6 +12,15 @@
 // the repetition penalty over the stream's window row cb - 1, the exact
 // sort-free top-p (i is kept iff sum(p_j : l_j > l_i) + p_i <= top_p, or i
 // is the argmax, or top_p >= 1), temperature and the Gumbel argmax.
+//
+// "value": each GEMV input rounds to bf16, products accumulate in f32.
+// "s8": each GEMV input row is quantized to int8 by its own absmax
+// (sc = max(amax, 1e-30) / 127, xq = round_half_even(x / sc)), computed
+// where the row is staged, after the barrier that ends the phase writing
+// it, so every block gets the same row and scale; the products are s8 x s8
+// __dp4a sums in s32, scaled as (sum * sc) * weight scale.  The embedding
+// stays exact.  The s8 staging is half the bytes of the bf16 one; the
+// bound is the same bytes, its operations at the int8 rate.
 //
 // Bound: bytes.  At S1-mini width the four int8 layers are 62.9 MB: read
 // once that is 0.019 ms at 3.35 TB/s, but the stack does not fit the 50 MB
@@ -60,11 +70,11 @@ enum {
   kH, kA0, kPrev, kGumbel, kTemp, kTopP, kRep, kRope,
   kAttnNorm, kFfnNorm, kWqkv, kWqkvS, kWo, kWoS, kW1, kW1S, kW3, kW3S, kW2, kW2S,
   kFastNorm, kHead, kHeadS, kEmb, kEmbS, kCodes, kLogitsOut,
-  kScratch, kClock, kSkip, kNumPtrs
+  kScratch, kClock, kSkip, kTrace, kTraceSc, kNumPtrs
 };
 enum {
   kB, kK, kL, kD, kHeads, kHkv, kDh, kI, kVr, kW, kHBf16, kCandCap, kClockCap, kScratchFloats,
-  kNumDims
+  kS8, kTraceCap, kNumDims
 };
 
 namespace fts {
@@ -115,7 +125,12 @@ struct FastArgs {
   int* cand_i;
   unsigned long long* clock;  // (grid, clock_cap) barrier times, or nullptr
   const unsigned char* skip;  // the frame's skip flag, or nullptr
-  int B, K, L, D, H, Hkv, Dh, I, Vr, W, h_bf16, clock_cap;
+  // the s8 variant's trace, or nullptr: block 0 copies each quantized
+  // activation row (trace_cap x B x the widest GEMV input, int8) and its
+  // scales (trace_cap x B), in the order the rows are made
+  int8_t* trace;
+  float* trace_sc;
+  int B, K, L, D, H, Hkv, Dh, I, Vr, W, h_bf16, clock_cap, trace_cap;
   int wslots;        // weight slots in shared memory: 1 or 2
   int wslot_bytes;   // bytes of one slot
   int wslot_offset;  // byte offset of the first slot
@@ -125,18 +140,24 @@ struct FastArgs {
 // Dynamic shared memory, in order:
 //   act    one of: the bf16 staging of a GEMV's input (B x its K); that of a
 //          normed input (B x D) with the f32 input itself at xf_offset; the
-//          sampler's penalized logits and probabilities (2 x B x Vr f32)
+//          sampler's penalized logits and probabilities (2 x B x Vr f32).
+//          In the s8 variant the staging is int8 (B x its K), and the f32
+//          region at xf_offset holds the normed phases' input or the
+//          attention output (B x max(D, H*Dh))
 //   part   the GEMV's partial sums (and the sampler's per-lane scores)
 //   bits   the penalty window of the next sampled position, a bit per lane
 //   gum    its Gumbel noise at the lanes this block owns
 //   slots  one or two weight slots (the launch sizes them)
-__host__ __device__ inline size_t xf_offset(int B, int D) {
+__host__ __device__ inline size_t xf_offset(int B, int D, int q_size, bool s8) {
+  if (s8) return round16((size_t)B * (D > q_size ? D : q_size));
   return round16((size_t)B * D * sizeof(__nv_bfloat16));
 }
-__host__ __device__ inline size_t act_bytes(int B, int D, int max_k, int Vr) {
-  size_t a = (size_t)B * max_k * sizeof(__nv_bfloat16);
+__host__ __device__ inline size_t act_bytes(int B, int D, int q_size, int max_k, int Vr,
+                                            bool s8) {
+  size_t a = (size_t)B * max_k * (s8 ? 1 : sizeof(__nv_bfloat16));
   const size_t s = (size_t)B * Vr * 2 * sizeof(float);
-  const size_t n = xf_offset(B, D) + (size_t)B * D * sizeof(float);
+  const size_t n = xf_offset(B, D, q_size, s8) +
+                   (size_t)B * (s8 && q_size > D ? q_size : D) * sizeof(float);
   a = a > s ? a : s;
   a = a > n ? a : n;
   return round16(a);
@@ -244,12 +265,15 @@ __device__ void rows_softmax_stats(const float* v, int B, int n, float* red, flo
   __syncthreads();
 }
 
-// xf[b, k] = the input, then xs[b, k] = bf16(xf[b, k] * rstd_b * nw[k])
-// with rstd_b the RMSNorm scale of row b and nw in shared memory.  The
-// input is read once, by all threads at once.
+// xf[b, k] = the input, then the staging of the normed input
+// n[b, k] = xf[b, k] * rstd_b * nw[k], with rstd_b the RMSNorm scale of
+// row b and nw in shared memory: bf16(n) into xs, or in the s8 variant n
+// quantized into the int8 xs with its row scales in xsc.  The input is
+// read once, by all threads at once.
+template <bool S8>
 __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int* code,
-                                           const float* nw, __nv_bfloat16* xs, float* xf,
-                                           float* red, float* rstd) {
+                                           const float* nw, void* stage, float* xf,
+                                           float* red, float* rstd, float* xsc) {
   const int B = a.B, D = a.D;
   for (int i = threadIdx.x; i < B * D / 4; i += kFastThreads) {  // 4 lanes at a time
     float4 v;
@@ -272,24 +296,31 @@ __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int
   }
   __syncthreads();
   rms_scales(xf, B, D, a.eps, red, rstd);
-  for (int i = threadIdx.x; i < B * D; i += kFastThreads) {
-    const int b = i / D;
-    xs[i] = __float2bfloat16_rn((xf[i] * rstd[b]) * nw[i - b * D]);
+  if constexpr (S8) {
+    auto normed = [&](int b, int k) { return (xf[(size_t)b * D + k] * rstd[b]) * nw[k]; };
+    row_scales_s8(normed, B, D, red, xsc);
+    quantize_rows_s8(normed, B, D, xsc, static_cast<int8_t*>(stage));
+  } else {
+    __nv_bfloat16* xs = static_cast<__nv_bfloat16*>(stage);
+    for (int i = threadIdx.x; i < B * D; i += kFastThreads) {
+      const int b = i / D;
+      xs[i] = __float2bfloat16_rn((xf[i] * rstd[b]) * nw[i - b * D]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // Attention of every stream and query head at position pos (cache rows
 // r < pos plus the token's own key), run in every block; the output goes
-// to xs (B, H*Dh) as bf16, the input of W_o.  One warp per (stream, KV
+// to out (B, H*Dh), the input of W_o: bf16, or f32 in the s8 variant.  One warp per (stream, KV
 // head, share of its G query heads), the shares as many as keep every warp
 // busy; lane i holds dims (2i, 2i + 1).  Every load (own key and value, the
 // queries, the cache rows) is issued before any score is formed, and
 // after_loads() runs once the first task's loads have landed.  Block 0
 // also writes the token's roped key and value into cache row pos.
-template <typename F>
+template <bool S8, typename F>
 __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
-                                           const __nv_bfloat16* rope_s, __nv_bfloat16* xs,
+                                           const __nv_bfloat16* rope_s, void* out,
                                            F after_loads) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = a.H / a.Hkv, q_size = a.H * a.Dh, kv_size = a.Hkv * a.Dh;
@@ -381,9 +412,15 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
           }
         }
         if (on) {
-          __nv_bfloat16* o = xs + (size_t)b * q_size + (j * G + g0 + g) * a.Dh + 2 * lane;
-          o[0] = __float2bfloat16_rn(o0 / den);
-          o[1] = __float2bfloat16_rn(o1 / den);
+          const size_t at = (size_t)b * q_size + (j * G + g0 + g) * a.Dh + 2 * lane;
+          if constexpr (S8) {
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+                make_float2(o0 / den, o1 / den);
+          } else {
+            __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
+            o[0] = __float2bfloat16_rn(o0 / den);
+            o[1] = __float2bfloat16_rn(o1 / den);
+          }
         }
       }
     }
@@ -523,7 +560,8 @@ __device__ void merge_codes(const FastArgs& a, int cb, int* code) {
   __syncthreads();
 }
 
-template <int MAXB>
+// S8: the "s8" dequant mode (int8 staging, __dp4a GEMVs); else "value".
+template <int MAXB, bool S8>
 __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
   // a skipped frame: every block reads the same flag before any barrier and
   // returns, so the grid leaves together and writes nothing
@@ -531,6 +569,7 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float rstd[kMaxBatch];
+  __shared__ float xsc[kMaxBatch];  // the s8 staging's row scales
   __shared__ float stat[2 * kMaxBatch];
   __shared__ float samp[3 * kMaxBatch];  // clamped temperature, top_p, penalty
   __shared__ float red[2 * kMaxBatch * kFastWarps];
@@ -542,10 +581,13 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   const int B = a.B, D = a.D, I = a.I, L = a.L, K = a.K, Vr = a.Vr, R = K - 1;
   const int q_size = a.H * a.Dh;
   const int max_k = D > q_size ? (D > I ? D : I) : (q_size > I ? q_size : I);
-  const size_t act = act_bytes(B, D, max_k, Vr);
+  const size_t act = act_bytes(B, D, q_size, max_k, Vr, S8);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* xf = reinterpret_cast<float*>(smem + xf_offset(B, D));
+  int8_t* xq = reinterpret_cast<int8_t*>(smem);  // the s8 variant's staging
+  void* stage = S8 ? static_cast<void*>(xq) : static_cast<void*>(xs);
+  float* xf = reinterpret_cast<float*>(smem + xf_offset(B, D, q_size, S8));
   float* part = reinterpret_cast<float*>(smem + act);
+  int* ipart = reinterpret_cast<int*>(part);  // the s8 GEMV's s32 partials
   unsigned* bits = reinterpret_cast<unsigned*>(smem + a.wslot_offset - bits_bytes(B, Vr) -
                                                round16((size_t)B * ((Vr + gridDim.x - 1) /
                                                                     gridDim.x) * sizeof(float)));
@@ -581,6 +623,35 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   int cur = 0;
   unsigned parity[2] = {0u, 0u};
   auto slot = [&](int s) { return wsm + (size_t)s * a.wslot_bytes; };
+  // the GEMV of a phase's owned rows (slot cur) against the staged input:
+  // its partials (returns S), row r0 + j of stream b, the rows stored
+  auto gemv = [&](const Span& sp) -> int {
+    if constexpr (S8) return gemv_partials_s8<MAXB>(sp, slot(cur), xq, B, ipart);
+    else return gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
+  };
+  auto row = [&](const Span& sp, int S, int j, int b) -> float {
+    if constexpr (S8) return row_value_s8<MAXB>(sp, slot(cur), ipart, S, j, b, xsc[b]).x;
+    else return row_value<MAXB>(sp, slot(cur), part, S, j, b).x;
+  };
+  auto store = [&](const Span& sp, int S, float* out, int ld) {
+    if constexpr (S8) store_rows_s8<MAXB>(sp, slot(cur), ipart, S, B, xsc, out, ld);
+    else store_rows<MAXB>(sp, slot(cur), part, S, B, out, ld);
+  };
+  // after each s8 quantization of n-wide rows, with the block synchronised
+  int traced = 0;
+  auto trace = [&](int n) {
+    if constexpr (S8) {
+      if (a.trace != nullptr && blockIdx.x == 0 && traced < a.trace_cap) {
+        int8_t* dst = a.trace + (size_t)traced * B * max_k;
+        for (int i = threadIdx.x; i < B * n; i += kFastThreads) {
+          const int b = i / n;
+          dst[(size_t)b * max_k + i - b * n] = xq[i];
+        }
+        if ((int)threadIdx.x < B) a.trace_sc[traced * B + threadIdx.x] = xsc[threadIdx.x];
+      }
+      ++traced;
+    }
+  };
   // at a weighted phase's start: wait for this phase's copy
   auto begin = [&](int pos, int kind, int l) {
     bar_wait(&bars[cur], parity[cur]);
@@ -637,15 +708,16 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
       // phase 1: RMSNorm + W_qkv
       Span sp = begin(pos, kQkvW, l);
       if (l == 0 && pos > 1) merge_codes(a, pos - 1, code);  // position 1 embeds a0
-      stage_norm(a, l > 0 ? kFromX : (pos == 0 ? kFromH : kFromEmb), code,
-                 slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+      stage_norm<S8>(a, l > 0 ? kFromX : (pos == 0 ? kFromH : kFromEmb), code,
+                     slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
+      trace(D);
       prefetch(pos, kQkvW, l);
       if (l == 0) {
         if (x_owner) x_own = xf[xb * D + xr0 + xj];
         publish_x();
       }
-      int S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
-      store_rows<MAXB>(sp, slot(cur), part, S, B, a.qkv, sp.N);
+      int S = gemv(sp);
+      store(sp, S, a.qkv, sp.N);
       finish(pos, kQkvW, l);
       barrier();
       if (pos == 0 && l == L - 1) {
@@ -657,33 +729,50 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
 
       // phase 2: attention + W_o + residual
       sp = begin(pos, kWoW, l);
-      attend_all(a, l, pos, rope_s, xs, [&]() { prefetch(pos, kWoW, l); });
-      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
-      if (x_owner) x_own += row_value<MAXB>(sp, slot(cur), part, S, xj, xb).x;
+      attend_all<S8>(a, l, pos, rope_s, S8 ? static_cast<void*>(xf) : stage,
+                     [&]() { prefetch(pos, kWoW, l); });
+      if constexpr (S8) {
+        auto att = [&](int b, int k) { return xf[(size_t)b * q_size + k]; };
+        row_scales_s8(att, B, q_size, red, xsc);
+        quantize_rows_s8(att, B, q_size, xsc, xq);
+        trace(q_size);
+      }
+      S = gemv(sp);
+      if (x_owner) x_own += row(sp, S, xj, xb);
       publish_x();
       finish(pos, kWoW, l);
       barrier();
 
       // phase 3: RMSNorm + W_1/W_3 SwiGLU
       sp = begin(pos, kW13W, l);
-      stage_norm(a, kFromX, code, slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+      stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
+      trace(D);
       prefetch(pos, kW13W, l);
-      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
-      store_rows<MAXB>(sp, slot(cur), part, S, B, a.hbuf, I);
+      S = gemv(sp);
+      store(sp, S, a.hbuf, I);
       finish(pos, kW13W, l);
       barrier();
 
       // phase 4: W_2 + residual
       sp = begin(pos, kW2W, l);
-      for (int i = threadIdx.x; i < B * I / 4; i += kFastThreads) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(a.hbuf) + i);
-        reinterpret_cast<__nv_bfloat162*>(xs)[2 * i] = __floats2bfloat162_rn(v.x, v.y);
-        reinterpret_cast<__nv_bfloat162*>(xs)[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+      if constexpr (S8) {
+        // the SwiGLU product is read from L2 twice: for its scales, then
+        // for its quantization
+        auto hid = [&](int b, int k) { return __ldcg(a.hbuf + (size_t)b * I + k); };
+        row_scales_s8(hid, B, I, red, xsc);
+        quantize_rows_s8(hid, B, I, xsc, xq);
+        trace(I);
+      } else {
+        for (int i = threadIdx.x; i < B * I / 4; i += kFastThreads) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(a.hbuf) + i);
+          reinterpret_cast<__nv_bfloat162*>(xs)[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+          reinterpret_cast<__nv_bfloat162*>(xs)[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+        }
+        __syncthreads();
       }
-      __syncthreads();
       prefetch(pos, kW2W, l);
-      S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
-      if (x_owner) x_own += row_value<MAXB>(sp, slot(cur), part, S, xj, xb).x;
+      S = gemv(sp);
+      if (x_owner) x_own += row(sp, S, xj, xb);
       publish_x();
       finish(pos, kW2W, l);
       barrier();
@@ -712,7 +801,8 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
         if (win[e] < b * Vr || win[e] >= (b + 1) * Vr) win[e] = -1;  // names no lane
       }
     }
-    stage_norm(a, kFromX, code, slot_norm(sp, slot(cur)), xs, xf, red, rstd);
+    stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
+    trace(D);
     prefetch(pos, kHeadW, 0);
     if ((int)threadIdx.x < B * nl) gum[threadIdx.x] = g_own;
 #pragma unroll
@@ -722,8 +812,8 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
         atomicOr(&bits[b * nw + v / 32], 1u << (v % 32));
       }
     }
-    const int S = gemv_partials<MAXB>(sp, slot(cur), xs, B, part);
-    store_rows<MAXB>(sp, slot(cur), part, S, B, a.head_buf, Vr);
+    const int S = gemv(sp);
+    store(sp, S, a.head_buf, Vr);
     finish(pos, kHeadW, 0);
     barrier();
 
@@ -734,9 +824,9 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   merge_codes(a, K - 1, code);
 }
 
-template <int MAXB>
+template <int MAXB, bool S8>
 cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
-  auto kern = fast_frame_kernel<MAXB>;
+  auto kern = fast_frame_kernel<MAXB, S8>;
   const int q_size = fa.H * fa.Dh, nqkv = q_size + 2 * fa.Hkv * fa.Dh;
   int max_k = fa.D > q_size ? fa.D : q_size;
   max_k = max_k > fa.I ? max_k : fa.I;
@@ -757,12 +847,12 @@ cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
   // segment partial sums: at most max(rows per block, warps) tasks; the
   // sampler's per-lane scores reuse the same space
   const size_t tasks = max_rows + kFastWarps;
-  const size_t base = act_bytes(fa.B, fa.D, max_k, fa.Vr) +
+  const size_t base = act_bytes(fa.B, fa.D, q_size, max_k, fa.Vr, S8) +
                       round16(tasks * 2 * MAXB * sizeof(float)) + bits_bytes(fa.B, fa.Vr) +
                       round16((size_t)fa.B * rows(fa.Vr) * sizeof(float));
 
   // the device's and the kernel's shared memory limits, and the occupancy
-  // at the last size asked for, are looked up once
+  // at the last size asked for, are looked up once per instantiation
   static size_t avail = 0, last_smem = 0;
   static int per_sm = 0;
   cudaError_t e;
@@ -800,13 +890,15 @@ cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
 }  // namespace
 }  // namespace fts
 
-// ptrs/dims in the order of the enums above; returns a cudaError_t.
+// ptrs/dims in the order of the enums above (dims[kS8] != 0 selects the
+// "s8" variant); returns a cudaError_t.
 extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, void* stream) {
   using namespace fts;
   FastArgs a;
   a.B = d[kB]; a.K = d[kK]; a.L = d[kL]; a.D = d[kD]; a.H = d[kHeads]; a.Hkv = d[kHkv];
   a.Dh = d[kDh]; a.I = d[kI]; a.Vr = d[kVr]; a.W = d[kW]; a.h_bf16 = d[kHBf16];
   a.clock_cap = d[kClockCap];
+  a.trace_cap = d[kTraceCap];
   a.eps = eps;
   if (a.Dh > kMaxFastHeadDim || a.Dh % 2 != 0 || a.H % a.Hkv != 0 || a.B < 1 ||
       a.B > kMaxBatch || a.W > kMaxWindow || a.K < 2 || a.K > kMaxPos ||
@@ -867,8 +959,15 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.cand_i = reinterpret_cast<int*>(at[7]);
   a.clock = static_cast<unsigned long long*>(p[kClock]);
   a.skip = static_cast<const unsigned char*>(p[kSkip]);
+  a.trace = static_cast<int8_t*>(p[kTrace]);
+  a.trace_sc = static_cast<float*>(p[kTraceSc]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.B <= 1) return (int)launch_frame<1>(a, cap, st);
-  if (a.B <= 4) return (int)launch_frame<4>(a, cap, st);
-  return (int)launch_frame<16>(a, cap, st);
+  if (d[kS8]) {
+    if (a.B <= 1) return (int)launch_frame<1, true>(a, cap, st);
+    if (a.B <= 4) return (int)launch_frame<4, true>(a, cap, st);
+    return (int)launch_frame<16, true>(a, cap, st);
+  }
+  if (a.B <= 1) return (int)launch_frame<1, false>(a, cap, st);
+  if (a.B <= 4) return (int)launch_frame<4, false>(a, cap, st);
+  return (int)launch_frame<16, false>(a, cap, st);
 }

@@ -11,6 +11,9 @@
 // - int8x16_to_float(), fma_chunk(), gemv_partials(), row_value(),
 //   store_rows(): the int8 GEMV of the owned rows against a bf16 staging of
 //   the input, every sum in one fixed order.
+// - row_scales_s8(), quantize_rows_s8(), gemv_partials_s8(),
+//   row_value_s8(), store_rows_s8(): the same GEMV against an int8 staging
+//   of the input (per-row absmax scale), by __dp4a into s32.
 // - rms_scales(): RMSNorm statistics folded in a fixed order, so every
 //   block that repeats them gets the same bits.
 // - stamp(): the phase clock, the global timer at each barrier.
@@ -258,6 +261,144 @@ __device__ __forceinline__ void store_rows(const Span& sp, const unsigned char* 
   for (int i = threadIdx.x; i < (sp.r1 - sp.r0) * B; i += kThreads) {
     const int j = i / B, b = i - j * B;
     const float2 v = row_value<MAXB>(sp, slot, part, S, j, b);
+    __stcg(out + (size_t)b * ld + sp.r0 + j,
+           sp.wu != nullptr ? (v.x * sigmoidf(v.x)) * v.y : v.x);
+  }
+}
+
+// The s8 GEMV (the Pallas kernel's "s8" dequant mode): the input row is
+// staged as int8 with one f32 scale per stream row, and each 16-byte weight
+// chunk meets the same 16 input bytes in four __dp4a, summed in s32.
+// Integer sums are exact in any order, so only the quantization step can
+// differ from the plain version.
+
+// xsc[b] = max(max_k |get(b, k)|, 1e-30) / 127 over k < n.  Every block that
+// stages the row gets the same scale: a max is exact in any order.  Uses
+// red (B x kWarps floats); ends with the block synchronised.
+template <typename F>
+__device__ void row_scales_s8(F get, int B, int n, float* red, float* xsc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int b = 0; b < B; ++b) {
+    float m = 0.f;
+    for (int k = threadIdx.x; k < n; k += kThreads) m = fmaxf(m, fabsf(get(b, k)));
+    m = warp_max(m);
+    if (lane == 0) red[b * kWarps + warp] = m;
+  }
+  __syncthreads();
+  for (int b = warp; b < B; b += kWarps) {
+    const float m = warp_max(lane < kWarps ? red[b * kWarps + lane] : 0.f);
+    if (lane == 0) xsc[b] = __fdiv_rn(fmaxf(m, 1e-30f), 127.0f);
+  }
+  __syncthreads();
+}
+
+// xq[b * n + k] = round_half_even(get(b, k) / xsc[b]) as int8, with an IEEE
+// division (|xq| <= 127 by construction); ends with the block synchronised.
+template <typename F>
+__device__ void quantize_rows_s8(F get, int B, int n, const float* xsc, int8_t* xq) {
+  for (int i = threadIdx.x; i < B * n; i += kThreads) {
+    const int b = i / n;
+    xq[i] = (int8_t)__float2int_rn(__fdiv_rn(get(b, i - b * n), xsc[b]));
+  }
+  __syncthreads();
+}
+
+// acc[b] += sum_j x[b, k0 + j] * w[j] over one 16-byte chunk of a row (and
+// the same for the SwiGLU up row), in s32; xk points at x[0, k0].
+template <int MAXB, bool UP>
+__device__ __forceinline__ void dp4a_chunk(const int4& wv, const int4& uv, const int8_t* xk,
+                                           int K, int B, int* acc, int* accu) {
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b) {
+    if (b < B) {
+      const int4 xv = *reinterpret_cast<const int4*>(xk + (size_t)b * K);
+      int s = acc[b];
+      s = __dp4a(wv.x, xv.x, s);
+      s = __dp4a(wv.y, xv.y, s);
+      s = __dp4a(wv.z, xv.z, s);
+      s = __dp4a(wv.w, xv.w, s);
+      acc[b] = s;
+      if (UP) {
+        int u = accu[b];
+        u = __dp4a(uv.x, xv.x, u);
+        u = __dp4a(uv.y, xv.y, u);
+        u = __dp4a(uv.z, xv.z, u);
+        u = __dp4a(uv.w, xv.w, u);
+        accu[b] = u;
+      }
+    }
+  }
+}
+
+// gemv_partials with an int8 staging xq (B, K): part[(j * S + sg) * 2 *
+// MAXB + b] (and + MAXB for the up row) is the s32 sum of segment sg of row
+// r0 + j.  Returns S; ends with the block synchronised.
+template <int MAXB>
+__device__ int gemv_partials_s8(const Span& sp, const unsigned char* slot, const int8_t* xq,
+                                int B, int* part) {
+  const int K = sp.K, nr = sp.r1 - sp.r0;
+  const int S = seg_count(sp.N, K);
+  const int seg = K / S, nch = seg / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int8_t* wrows = reinterpret_cast<const int8_t*>(slot);
+  const int8_t* urows = wrows + (size_t)nr * K;
+  const bool up = sp.wu != nullptr;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int t = warp; t < nr * S; t += kWarps) {
+    const int j = t / S, sg = t - j * S;
+    const int4* wr = reinterpret_cast<const int4*>(wrows + (size_t)j * K + (size_t)sg * seg);
+    const int4* ur = reinterpret_cast<const int4*>(urows + (size_t)j * K + (size_t)sg * seg);
+    const int8_t* xb = xq + (size_t)sg * seg;
+    int acc[MAXB], accu[MAXB];
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) acc[b] = accu[b] = 0;
+    if (up) {
+      for (int c = lane; c < nch; c += 32)
+        dp4a_chunk<MAXB, true>(wr[c], ur[c], xb + c * 16, K, B, acc, accu);
+    } else {
+      for (int c = lane; c < nch; c += 32)
+        dp4a_chunk<MAXB, false>(wr[c], zero, xb + c * 16, K, B, acc, accu);
+    }
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) {
+      if (b < B) {
+        const int s = __reduce_add_sync(0xffffffffu, acc[b]);
+        const int u = up ? __reduce_add_sync(0xffffffffu, accu[b]) : 0;
+        if (lane == 0) {
+          part[(size_t)t * 2 * MAXB + b] = s;
+          part[(size_t)t * 2 * MAXB + MAXB + b] = u;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  return S;
+}
+
+// Row r0 + j of stream b from the s32 partials: ((float)sum * xsc_b) * s_j,
+// the plain version's order, for (down, up).
+template <int MAXB>
+__device__ __forceinline__ float2 row_value_s8(const Span& sp, const unsigned char* slot,
+                                               const int* part, int S, int j, int b,
+                                               float xsc_b) {
+  int s = 0, u = 0;
+  for (int sg = 0; sg < S; ++sg) {
+    s += part[(size_t)(j * S + sg) * 2 * MAXB + b];
+    u += part[(size_t)(j * S + sg) * 2 * MAXB + MAXB + b];
+  }
+  return make_float2(
+      (__int2float_rn(s) * xsc_b) * slot_scales(sp, slot)[j],
+      sp.wu != nullptr ? (__int2float_rn(u) * xsc_b) * slot_scales(sp, slot, true)[j] : 0.f);
+}
+
+// store_rows from the s32 partials, stream b's row scaled by xsc[b].
+template <int MAXB>
+__device__ __forceinline__ void store_rows_s8(const Span& sp, const unsigned char* slot,
+                                              const int* part, int S, int B, const float* xsc,
+                                              float* out, int ld) {
+  for (int i = threadIdx.x; i < (sp.r1 - sp.r0) * B; i += kThreads) {
+    const int j = i / B, b = i - j * B;
+    const float2 v = row_value_s8<MAXB>(sp, slot, part, S, j, b, xsc[b]);
     __stcg(out + (size_t)b * ld + sp.r0 + j,
            sp.wu != nullptr ? (v.x * sigmoidf(v.x)) * v.y : v.x);
   }

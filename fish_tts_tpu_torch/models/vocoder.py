@@ -1,6 +1,14 @@
-"""DAC-style codec decode (port of ``fish_tts_tpu/models/vocoder.py``).
+"""DAC-style codec (port of ``fish_tts_tpu/models/vocoder.py``).
 
-Codes (B, 1+R, N) -> audio (B, 1, N * frame_length):
+Audio (B, 1, T) -> codes (B, 1+R, ceil(T / frame_length)), ``dac_encode``:
+
+  encoder: stem conv -> 4x (3 dilated ResidualUnits + Snake + strided conv
+    [+ window-512 transformer at the last stage]) -> Snake -> conv
+  quantizer encode: 2x (causal strided conv + ConvNeXt) -> pre window-128
+    transformer -> the semantic codebook's nearest entry, then each
+    residual codebook's on what is left
+
+Codes (B, 1+R, N) -> audio (B, 1, N * frame_length), ``dac_decode``:
 
   quantizer decode: semantic + residual codebook embeddings, summed ->
     post window-128 transformer -> 2x (causal transposed conv + ConvNeXt)
@@ -10,8 +18,9 @@ Codes (B, 1+R, N) -> audio (B, 1, N * frame_length):
 The parameter tree and its layouts are the JAX package's (conv kernels
 ``(O, I/groups, K)``, transposed ``(I, O, K)``, linear weights
 ``(in, out)``).  The decoder-side transformers of the config are dropped,
-as in the JAX package.  The encoder is not ported yet; ``init_vocoder_params``
-still makes its parameters so a tree round-trips.
+as in the JAX package.  The JAX package runs all of this on XLA
+convolutions and einsums, outside any Pallas kernel; here they are
+``F.conv1d`` and matrix products.
 """
 
 from __future__ import annotations
@@ -271,6 +280,72 @@ def _vq_embed_codes(vq: Params, codes):
     return torch.einsum("btd,cd->bct", emb, w) + vq["out_proj"]["b"][None, :, None]
 
 
+def _vq_nearest(vq: Params, z_e):
+    """Nearest codebook entry under L2 on normalized vectors, the argmax of
+    their dot products: z_e (B, cb_dim, T) -> (B, T) int64."""
+    enc = z_e.transpose(1, 2)
+    enc = enc / (torch.linalg.vector_norm(enc, dim=-1, keepdim=True) + 1e-12)
+    cb = vq["codebook"].to(enc.dtype)
+    cb = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)
+    return torch.argmax(torch.einsum("btd,nd->btn", enc, cb), dim=-1)
+
+
+def _vq_in_proj(vq: Params, z):
+    """The 1x1 ``in_proj`` conv: (B, C, T) -> (B, cb_dim, T)."""
+    w = vq["in_proj"]["w"][:, :, 0]
+    return torch.einsum("bct,dc->bdt", z, w) + vq["in_proj"]["b"][None, :, None]
+
+
+def quantizer_latent(qp: Params, cfg: VocoderConfig, z):
+    """latent (B, C, T) -> the codebooks' input (B, C, T / downsample): the
+    downsampling convs and the pre transformer of ``quantizer_encode``."""
+    for stage, f in zip(qp["downsample"], cfg.downsample_factor):
+        z = causal_conv1d(z, stage["conv"]["w"], stage["conv"]["b"], stride=f)
+        z = _convnext(stage["convnext"], z)
+    return _wlt_forward(qp["pre"], cfg.quantizer_transformer, cfg.quantizer_window, z)
+
+
+def vq_books(qp: Params) -> list[Params]:
+    """The codebooks in code order: the semantic one, then the residual ones."""
+    return [qp["semantic"], *qp["residual"]]
+
+
+def quantizer_encode(qp: Params, cfg: VocoderConfig, z):
+    """latent (B, C, T) -> codes (B, 1+R, T / downsample) int64."""
+    return vq_encode(qp, quantizer_latent(qp, cfg, z))
+
+
+def vq_encode(qp: Params, z):
+    """The codebooks' input (B, C, T) -> codes (B, 1+R, T) int64: the
+    semantic code, then each residual code on what the codes before it
+    leave."""
+    sem = _vq_nearest(qp["semantic"], _vq_in_proj(qp["semantic"], z))
+    residual = z - _vq_embed_codes(qp["semantic"], sem)
+    codes = [sem]
+    for vq in qp["residual"]:
+        c = _vq_nearest(vq, _vq_in_proj(vq, residual))
+        codes.append(c)
+        residual = residual - _vq_embed_codes(vq, c)
+    return torch.stack(codes, dim=1)
+
+
+def encoder_forward(ep: Params, cfg: VocoderConfig, x):
+    """audio (B, 1, T) -> latent (B, latent_dim, T / hop)."""
+    d = cfg.encoder_dim
+    x = causal_conv1d(x, ep["stem"]["w"], ep["stem"]["b"])
+    for block, stride, n_t in zip(ep["blocks"], cfg.encoder_rates,
+                                  cfg.encoder_transformer_layers):
+        d *= 2
+        for dil, unit in zip((1, 3, 9), block["units"]):
+            x = _residual_unit(unit, x, dil)
+        x = snake(x, block["snake"])
+        x = causal_conv1d(x, block["down"]["w"], block["down"]["b"], stride=stride)
+        if n_t > 0:
+            x = _wlt_forward(block["wlt"], _stage_tcfg(d, n_t), cfg.encoder_window, x)
+    x = snake(x, ep["final_snake"])
+    return causal_conv1d(x, ep["final_conv"]["w"], ep["final_conv"]["b"])
+
+
 def quantizer_decode(qp: Params, cfg: VocoderConfig, indices):
     """codes (B, 1+R, T) -> latent (B, C, T*downsample); out-of-range codes
     clamp."""
@@ -305,3 +380,14 @@ def dac_decode(params: Params, cfg: VocoderConfig, indices):
     """codes (B, 1+R, N) -> audio (B, 1, N*frame_length)."""
     z = quantizer_decode(params["quantizer"], cfg, indices)
     return decoder_forward(params["decoder"], cfg, z)
+
+
+@torch.no_grad()
+def dac_encode(params: Params, cfg: VocoderConfig, audio):
+    """audio (B, 1, T) -> codes (B, 1+R, ceil(T / frame_length)) int64: the
+    audio right-padded with zeros to a whole number of frames, encoded and
+    quantized."""
+    fl = cfg.frame_length
+    audio = F.pad(audio, (0, -(-audio.shape[-1] // fl) * fl - audio.shape[-1]))
+    z = encoder_forward(params["encoder"], cfg, audio)
+    return quantizer_encode(params["quantizer"], cfg, z)

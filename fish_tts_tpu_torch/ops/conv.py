@@ -23,6 +23,12 @@ import torch.nn.functional as F
 
 def conv1d(x, w, b=None, stride=1, dilation=1, groups=1, padding=(0, 0)):
     x = F.pad(x.to(w.dtype), padding)
+    if stride > 1 and x.device.type == "cpu" and w.dtype in (torch.bfloat16, torch.float16):
+        # PyTorch's CPU convolution sums some strided reduced-precision shapes
+        # wrongly (the encoder's kernel 16, stride 8 in bf16); there the sums
+        # run in float32, as on the card, and round to the dtype once
+        return F.conv1d(x.float(), w.float(), None if b is None else b.float(), stride=stride,
+                        dilation=dilation, groups=groups).to(w.dtype)
     return F.conv1d(x, w, b, stride=stride, dilation=dilation, groups=groups)
 
 

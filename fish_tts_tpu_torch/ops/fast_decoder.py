@@ -1,8 +1,8 @@
 """Fast-codebook decoder: the per-frame loop over the codebook positions
 (kernel 3).
 
-Port of ``fish_tts_tpu/ops/fast_decoder.py::fast_decode_frame`` in its
-default ``"value"`` dequant mode.  Position 0 runs the fast layers on the
+Port of ``fish_tts_tpu/ops/fast_decoder.py::fast_decode_frame`` with its
+dequant modes (``DEQUANT_MODES``).  Position 0 runs the fast layers on the
 projected slow hidden state and only fills the per-frame K/V cache.  Each
 position cb = 1..K-1 embeds the previous code (int8 row x row scale), runs
 the layers with causal attention over the positions so far, applies
@@ -13,11 +13,16 @@ window row, the sort-free exact top-p (i is kept iff
 ``top_p >= 1``), the temperature clamped at 1e-5, and the Gumbel argmax
 with noise drawn by the caller.
 
-Numerics are the Pallas kernel's: activations round to bf16 before each
-int8 product, accumulation and the per-frame K/V cache are f32.
+Numerics are the Pallas kernel's.  ``"value"`` (the default) and
+``"scratch"`` (equal to it to the bit in the JAX package, so it runs the
+same code): activations round to bf16 before each int8 product,
+accumulation and the per-frame K/V cache are f32.  ``"s8"``: each product's
+activation row is quantized to int8 by its own absmax (:func:`s8dot`) and
+the s8 x s8 products sum exactly in integers; the embedding stays exact.
 
 ``fast_decode_frame`` launches the CUDA kernel (``csrc/fast_decoder.cu``:
-one cooperative launch per frame, phases separated by grid-wide barriers)
+one cooperative launch per frame, phases separated by grid-wide barriers;
+the ``"s8"`` mode its own instantiation, counted in ``launches_s8``)
 for CUDA tensors and runs ``fast_decode_frame_plain`` for CPU tensors only.
 The weights are checked and converted once per parameter set, and the
 kernel's scratch is allocated once per shape.  Both take an optional
@@ -51,19 +56,43 @@ MAX_HEAD_DIM = 64  # csrc/fast_decoder.cu kMaxFastHeadDim: one RoPE pair per lan
 BLOCKS_PER_SM = 4  # 2048 threads per SM over 512 per block: the most the grid can hold
 
 launches = 0  # kernel launches, for showing that a run went through it
+launches_s8 = 0  # the same for the "s8" variant
+
+# The Pallas kernel's ways of feeding its int8 weights to the products (JAX
+# fast_decoder.py:98): "scratch" and "value" dequantize the weights exactly
+# (equal to the bit), "s8" quantizes the activations instead.
+DEQUANT_MODES = ("scratch", "value", "s8")
+DEFAULT_DEQUANT = "value"
 # When set to a CUDA int64 tensor (blocks >= the grid, stamps), each block of
 # the kernel writes the global timer (ns) at its start and at its arrival at
 # and departure from every grid-wide barrier, in order.
 phase_clock: torch.Tensor | None = None
+# When set to CUDA tensors (rows (T, B, s8_trace_width) int8, scales (T, B)
+# f32), block 0 of the "s8" variant copies each activation row it quantizes
+# and its scales there, in the order of ``s8_trace_layout`` (at most T rows).
+s8_trace: tuple[torch.Tensor, torch.Tensor] | None = None
+S8_KINDS = ("wqkv", "wo", "w13", "w2")  # the quantized inputs of one layer, in order
 
 
 _MATRICES = ("wqkv", "wo", "w1", "w3", "w2")
 
 
-def supports(cfg: DualARConfig, params: Params, batch: int, window: int) -> bool:
+def resolve_dequant(dequant: str | None) -> str:
+    """The dequant mode, ``DEFAULT_DEQUANT`` for None; raises ValueError on
+    an unknown one, as the JAX entry does."""
+    dequant = dequant or DEFAULT_DEQUANT
+    if dequant not in DEQUANT_MODES:
+        raise ValueError(f"dequant must be one of {DEQUANT_MODES}")
+    return dequant
+
+
+def supports(cfg: DualARConfig, params: Params, batch: int, window: int,
+             dequant: str | None = None) -> bool:
     """Whether the kernel takes this config, parameter set, batch and penalty
     window: int8 fast layers, embeddings and head, no attention biases or
-    qk-norm in the fast stack, widths within the kernel's limits."""
+    qk-norm in the fast stack, widths within the kernel's limits.  Every
+    dequant mode has the same limits; an unknown one raises."""
+    resolve_dequant(dequant)
     fl = params.get("fast_layers", {})
     return (
         1 <= batch <= MAX_BATCH
@@ -107,10 +136,54 @@ def top_p_pairwise_keep(logits: torch.Tensor, top_p: torch.Tensor) -> torch.Tens
     return (above + p <= top_p) | (logits >= amax) | (top_p >= 1.0)
 
 
+def s8_trace_width(cfg: DualARConfig) -> int:
+    """The widest input the fast layers quantize: a row of ``s8_trace``."""
+    return max(cfg.fast_dim, cfg.fast_n_head * cfg.fast_head_dim, cfg.fast_intermediate_size)
+
+
+def s8_trace_layout(cfg: DualARConfig, kernel: bool = True) -> list[tuple[int, int, str]]:
+    """(position, layer or -1, kind) of each activation row a frame quantizes
+    in the ``"s8"`` mode, in order: S8_KINDS per layer, then the head
+    (``"head"``) at positions >= 1.  The kernel (``kernel``) stops position
+    0's last layer after its first row, whose output it discards; the plain
+    version runs that layer whole."""
+    L = cfg.n_fast_layer
+    out = []
+    for pos in range(cfg.num_codebooks):
+        for i in range(L):
+            kinds = S8_KINDS[:1] if kernel and pos == 0 and i == L - 1 else S8_KINDS
+            out += [(pos, i, kind) for kind in kinds]
+        if pos > 0:
+            out.append((pos, -1, "head"))
+    return out
+
+
+def s8_scaled(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``"s8"`` mode's quantization before its rounding: (x / sc, sc)
+    with ``sc = max(amax, 1e-30) / 127`` over the f32 row."""
+    x = x.float()
+    sc = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-30) / 127
+    return x / sc, sc
+
+
+def s8dot(x: torch.Tensor, w: Params) -> torch.Tensor:
+    """The ``"s8"`` mode's product (JAX ``s8dot``, fast_decoder.py:244-252,
+    with the weight scale after it): the f32 row quantized by its absmax
+    (:func:`s8_scaled`), ``xq = round_half_even(x / sc)``, the s8 x s8 sums
+    (exact in float64), then ``(acc * sc) * s``.  W int8 (out, in), s
+    (out, 1)."""
+    q, sc = s8_scaled(x)
+    xq = torch.round(q).to(torch.int8)
+    acc = (xq.double() @ w["q"].double().transpose(0, 1)).float()
+    return (acc * sc) * w["s"][:, 0].float()
+
+
 def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0,
                             prev_rows, gumbel, temperature, top_p, repetition_penalty, *,
-                            window: int, skip: torch.Tensor | None = None):
+                            window: int, skip: torch.Tensor | None = None,
+                            dequant: str | None = None):
     """Plain PyTorch version of :func:`fast_decode_frame`."""
+    dot = s8dot if resolve_dequant(dequant) == "s8" else qdot
     B = h_fast.shape[0]
     K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
     H, Hkv, Dh = cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim
@@ -135,12 +208,12 @@ def fast_decode_frame_plain(params: Params, cfg: DualARConfig, rope_fast, h_fast
         for i in range(cfg.n_fast_layer):
             kc, vc = caches[i]
             x, k, v = block_plain(layer(fl, i), x, pairs, kc, vc, n_live,
-                                  n_head=H, n_kv=Hkv, head_dim=Dh, eps=cfg.norm_eps)
+                                  n_head=H, n_kv=Hkv, head_dim=Dh, eps=cfg.norm_eps, dot=dot)
             kc[:, :, pos] = k
             vc[:, :, pos] = v
         if pos == 0:  # position 0 only fills the cache
             continue
-        logits = qdot(rms(x, params["fast_norm"], cfg.norm_eps), head)
+        logits = dot(rms(x, params["fast_norm"], cfg.norm_eps), head)
         logits = penalize(logits, prev_rows[:, pos - 1], rep)
         keep = top_p_pairwise_keep(logits, tp)
         masked = torch.where(keep, logits, torch.full_like(logits, NEG))
@@ -223,13 +296,14 @@ def _prepare(params: Params, cfg: DualARConfig, rope_fast: torch.Tensor) -> list
 
 def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, prev_rows,
                       gumbel, temperature, top_p, repetition_penalty, *, window: int,
-                      skip: torch.Tensor | None = None):
+                      skip: torch.Tensor | None = None, dequant: str | None = None):
     """Run the per-frame codebook loop for B <= 16 streams.
 
     h_fast (B, D) projected slow hidden (f32 or bf16); a0 (B,) first code;
     prev_rows (B, K-1, W) int32 penalty windows; gumbel (B, K-1, Vr) f32;
-    sampling parameters scalar or (B, 1).  Returns (codes (B, K-1) int32,
-    penalized logits (B, K-1, Vr) f32).
+    sampling parameters scalar or (B, 1); ``dequant`` one of
+    ``DEQUANT_MODES`` (None: ``DEFAULT_DEQUANT``).  Returns (codes (B, K-1)
+    int32, penalized logits (B, K-1, Vr) f32).
 
     On CUDA tensors this is one cooperative launch of every block the card
     holds; it raises if the card (or an MPS limit) refuses such a launch.
@@ -237,11 +311,12 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     if cfg.fast_attention_qkv_bias or cfg.fast_attention_o_bias or cfg.fast_attention_qk_norm:
         raise ValueError("fast_decode_frame: the kernel and its plain version have no "
                          "attention biases or qk-norm")
+    s8 = resolve_dequant(dequant) == "s8"
     if h_fast.device.type == "cpu":
         return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
                                        gumbel, temperature, top_p, repetition_penalty,
-                                       window=window, skip=skip)
-    global launches
+                                       window=window, skip=skip, dequant=dequant)
+    global launches, launches_s8
     B, D = h_fast.shape
     K, Vr, L = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer
     H, Hkv, Dh = cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim
@@ -290,10 +365,20 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         kernels.require_cuda("phase_clock", clock, torch.int64)
         if clock.dim() != 2 or clock.shape[0] < cand_cap // B:
             raise ValueError("phase_clock: expected (blocks, stamps) with a row per block")
+    trace = s8_trace if s8 and s8_trace is not None else (None, None)
+    if trace[0] is not None:
+        kernels.require_cuda("s8_trace rows", trace[0], torch.int8)
+        kernels.require_cuda("s8_trace scales", trace[1], torch.float32, trace[0].shape[:2])
+        if trace[0].dim() != 3 or trace[0].shape[1:] != (B, s8_trace_width(cfg)):
+            raise ValueError(f"s8_trace: expected rows (T, {B}, {s8_trace_width(cfg)})")
     ptrs = [h_fast, a0, prev_rows, gumbel, temp, tp, rep, *weights, codes, logits, scratch,
-            clock, skip]
+            clock, skip, *trace]
     dims = [B, K, L, D, H, Hkv, Dh, I, Vr, W, int(h_fast.dtype == torch.bfloat16), cand_cap,
-            0 if clock is None else clock.shape[1], n_scratch]
+            0 if clock is None else clock.shape[1], n_scratch, int(s8),
+            0 if trace[0] is None else trace[0].shape[0]]
     kernels.launch("fts_fast_decode_frame", ptrs, dims, eps=cfg.norm_eps)
-    launches += 1
+    if s8:
+        launches_s8 += 1
+    else:
+        launches += 1
     return codes, logits

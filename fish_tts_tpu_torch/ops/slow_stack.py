@@ -117,8 +117,9 @@ def layer(stack: Params, i: int) -> Params:
 
 def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_cache,
                 n_live: torch.Tensor, *, n_head: int, n_kv: int, head_dim: int,
-                eps: float):
-    """One decode block for B streams, the kernels' numerics.
+                eps: float, dot=qdot):
+    """One decode block for B streams, the kernels' numerics; ``dot`` is the
+    int8 product (:func:`qdot`, or the fast decoder's ``s8dot``).
 
     x (B, D) f32; ``q_pairs`` (B, Dh/2, 2) the RoPE rows of this token;
     k/v_cache (B, Hkv, R, Dh); ``n_live`` (B,) cache rows each stream
@@ -128,7 +129,7 @@ def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_c
     B = x.shape[0]
     G = n_head // n_kv
     q_size, kv_size = n_head * head_dim, n_kv * head_dim
-    qkv = qdot(rms(x, lp["attention_norm"], eps), lp["wqkv"])
+    qkv = dot(rms(x, lp["attention_norm"], eps), lp["wqkv"])
     q = rope_rows(qkv[:, :q_size], q_pairs).reshape(B, n_kv, G, head_dim)
     k = rope_rows(qkv[:, q_size:q_size + kv_size], q_pairs).reshape(B, n_kv, head_dim)
     v = qkv[:, q_size + kv_size:].reshape(B, n_kv, head_dim)
@@ -141,10 +142,10 @@ def block_plain(lp: Params, x: torch.Tensor, q_pairs: torch.Tensor, k_cache, v_c
     s_self = torch.einsum("bhgd,bhd->bhg", q, k)[..., None] * scale
     p = torch.softmax(torch.cat([s_cache, s_self], dim=-1), dim=-1)
     o = torch.einsum("bhgr,bhrd->bhgd", p[..., :-1], vc) + p[..., -1:] * v[:, :, None]
-    x = x + qdot(o.reshape(B, q_size), lp["wo"])
+    x = x + dot(o.reshape(B, q_size), lp["wo"])
     f = rms(x, lp["ffn_norm"], eps)
-    gate = qdot(f, lp["w1"])
-    x = x + qdot(gate * torch.sigmoid(gate) * qdot(f, lp["w3"]), lp["w2"])
+    gate = dot(f, lp["w1"])
+    x = x + dot(gate * torch.sigmoid(gate) * dot(f, lp["w3"]), lp["w2"])
     return x, k, v
 
 

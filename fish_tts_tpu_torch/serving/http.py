@@ -18,8 +18,8 @@ Endpoints:
   ``voice`` names a :class:`VoiceProfile` of the server's registry.
 - ``GET /voices``: the registry's names.
 - ``PUT /voices/<name>``: register a voice from ``{"wav_b64": ...,
-  "text": ...}`` through the codec encoder; 501 while the instance has no
-  ``encode_reference`` (the port's codec encoder is not ported yet).
+  "text": ...}`` through the instance's ``encode_reference`` (the codec
+  encoder); 501 from a handler built without one.
 - ``POST /v1/audio/speech``: the OpenAI-compatible speech endpoint
   (``{"model", "input", "voice", "response_format": "wav"|"pcm",
   "speed": 1.0}``); unknown voice names fall back to the default voice;
@@ -487,7 +487,6 @@ def make_server(tts, host: str = "127.0.0.1", port: int = 8080,
     sess = tts.serve(slots=slots, vocoder_device=vocoder_device,
                      max_queue=max_queue)
     driver = ServeDriver(sess)
-    # the codec encoder is not ported yet: PUT /voices answers 501 without it
     handler = _make_handler(driver, tts._vocoder_cfg.sample_rate,
                             voices=voices,
                             encode_reference=getattr(tts, "encode_reference", None))

@@ -1,16 +1,20 @@
 """The public API: ``FishTTS.synthesize(text) -> WAV bytes``,
 ``FishTTS.synthesize_stream(text) -> int16 PCM chunks``, their batched
-forms ``synthesize_batch(texts)`` / ``synthesize_batch_stream(texts)`` and
-continuous-batching serving, ``FishTTS.serve() -> ServeSession``, on the
-card.
+forms ``synthesize_batch(texts)`` / ``synthesize_batch_stream(texts)``,
+long text past one context, ``synthesize_long(text)`` /
+``synthesize_long_stream(text)``, voice profiles from WAV audio,
+``encode_reference(wav, text)``, and continuous-batching serving,
+``FishTTS.serve() -> ServeSession``, on the card.
 
-Port of ``fish_tts_tpu/synthesizer.py`` without ``synthesize_long`` and the
-codec encoder: ``FishTTS`` (from a native model directory or a testing bundle,
-precision ``bf16`` by default, ``fp16``, ``fp32`` or ``int8``), single and
-batched synthesis, streamed or not, with ``references=`` per call or the
-stored ones (``set_references`` and friends: prefilled once into the
-engine's KV prefix), the engine's ``metrics`` and ``get_metrics()``,
-``VoiceProfile`` and the ``get_instance``/``reset_instance`` singleton.
+Port of ``fish_tts_tpu/synthesizer.py``: ``FishTTS`` (from a native model
+directory or a testing bundle, precision ``bf16`` by default, ``fp16``,
+``fp32`` or ``int8``), single and batched synthesis, streamed or not, with
+``references=`` per call or the stored ones (``set_references`` and
+friends: prefilled once into the engine's KV prefix), long text in
+sentence-aware chunks with a rolling carry of codes, the codec encoder
+behind ``encode_reference``, the engine's ``metrics`` and
+``get_metrics()``, ``VoiceProfile`` and the
+``get_instance``/``reset_instance`` singleton.
 A float precision casts the LM and the codec to that dtype (the KV cache
 follows); ``int8`` keeps bf16 activations and codec with weight-only int8
 LM matmuls, the route of the three kernels.
@@ -40,9 +44,10 @@ from fish_tts_tpu_torch.models import vocoder, vocoder_stream
 from fish_tts_tpu_torch.models.dual_ar import cast_params
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.utils import checkpoint as ckpt
-from fish_tts_tpu_torch.utils.audio import to_pcm_bytes, to_wav_bytes
+from fish_tts_tpu_torch.utils.audio import read_wav, to_pcm_bytes, to_wav_bytes
 from fish_tts_tpu_torch.utils.profiling import hbm_bytes_in_use
 from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+from fish_tts_tpu_torch.utils.text import split_text
 
 logger = logging.getLogger(__name__)
 
@@ -472,12 +477,6 @@ class FishTTS:
         ``"context"`` decodes ``context_frames`` of history before each
         chunk and trims it.  Unknown keyword arguments raise ``TypeError``.
         """
-        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
-        buffer: list[np.ndarray] = []
-        total = 0
-        is_first = True
-        in_flight = None  # the previous chunk's handle, not yet read back
-
         if vocoder_mode == "stateful":
             sv = _StreamVocoder(self)
 
@@ -494,34 +493,115 @@ class FishTTS:
         else:
             raise ValueError(f"vocoder_mode must be 'stateful' or 'context', not "
                              f"{vocoder_mode!r}")
+        yield from self._stream_text(
+            text, references, flush, first=min_first_chunk, every=chunk_tokens,
+            max_tokens=max_tokens, temperature=temperature, top_p=top_p,
+            repetition_penalty=repetition_penalty)
 
+    def _stream_text(self, text: str, references: list[VoiceProfile] | None, flush,
+                     first: int | None, every: int, max_tokens: int, temperature: float,
+                     top_p: float, repetition_penalty: float,
+                     collected: list[np.ndarray] | None = None) -> Iterator[bytes]:
+        """One text's streamed PCM: ``flush(buffer)`` enqueues the decode of
+        the buffered codes and returns a handle for :meth:`_force_pcm`.  The
+        first flush, at ``first`` frames, is read back at once (``None``: no
+        such flush, every flush at ``every`` frames); every later one is
+        read back after the next LM chunk has been requested, so the device
+        works on it while the host sets up the next step.  The codes go to
+        ``collected`` too when it is given."""
+        prompt_text, prompt_tokens, use_prefix = self._get_prompt_data(references)
+        buffer: list[np.ndarray] = []
+        total = 0
+        in_flight = None  # the previous flush's handle, not yet read back
         for response in self._engine.generate_long(
             text, max_new_tokens=max_tokens, temperature=temperature, top_p=top_p,
             repetition_penalty=repetition_penalty, prompt_text=prompt_text,
             prompt_tokens=prompt_tokens, streaming=True, use_prefix_cache=use_prefix,
         ):
-            if response.action == "sample":
-                buffer.append(response.codes)
-                total += response.codes.shape[1]
-                if total >= (min_first_chunk if is_first else chunk_tokens):
-                    handle = flush(buffer)
-                    buffer, total = [], 0
-                    if is_first:
-                        # the first audio is what the listener waits for
-                        yield self._force_pcm(*handle)
-                    else:
-                        if in_flight is not None:
-                            yield self._force_pcm(*in_flight)
-                        in_flight = handle
-                    is_first = False
-            elif response.action == "next":
-                if buffer:
+            if response.action == "next":
+                break
+            buffer.append(response.codes)
+            if collected is not None:
+                collected.append(response.codes)
+            total += response.codes.shape[1]
+            if total >= (every if first is None else first):
+                handle = flush(buffer)
+                buffer, total = [], 0
+                if first is not None:  # the first audio is what the listener waits for
+                    yield self._force_pcm(*handle)
+                else:
                     if in_flight is not None:
                         yield self._force_pcm(*in_flight)
-                    in_flight = flush(buffer)
-                break
+                    in_flight = handle
+                first = None
+        if buffer:
+            if in_flight is not None:
+                yield self._force_pcm(*in_flight)
+            in_flight = flush(buffer)
         if in_flight is not None:
             yield self._force_pcm(*in_flight)
+
+    # -- long text ---------------------------------------------------------------
+
+    def synthesize_long(self, text: str, references: list[VoiceProfile] | None = None,
+                        temperature: float = 0.7, top_p: float = 0.8,
+                        repetition_penalty: float = 1.1, max_chars: int = 200,
+                        carry_frames: int = 64, max_tokens_per_chunk: int = 2048) -> bytes:
+        """Synthesis past one context: ``text`` cut into sentence-aware chunks
+        of at most ``max_chars`` (``utils.text.split_text``), spoken in turn.
+        Returns one WAV of the concatenated PCM of
+        :meth:`synthesize_long_stream`; raises when no audio came out.
+        ``carry_frames`` bounds the codes of each chunk carried into the next
+        one's prompt (~3 s at 64 frames); the references, the carry and the
+        chunk's text must fit the prompt, or the engine raises."""
+        pcm = b"".join(self.synthesize_long_stream(
+            text, references=references, temperature=temperature, top_p=top_p,
+            repetition_penalty=repetition_penalty, max_chars=max_chars,
+            carry_frames=carry_frames, max_tokens_per_chunk=max_tokens_per_chunk))
+        if not pcm:
+            raise RuntimeError("No audio generated")
+        samples = np.frombuffer(pcm, np.int16).astype(np.float32)
+        return to_wav_bytes(samples / 32767.0, self.sample_rate)
+
+    def synthesize_long_stream(self, text: str, references: list[VoiceProfile] | None = None,
+                               chunk_tokens: int = 20, min_first_chunk: int = 10,
+                               temperature: float = 0.7, top_p: float = 0.8,
+                               repetition_penalty: float = 1.1, max_chars: int = 200,
+                               carry_frames: int = 64,
+                               max_tokens_per_chunk: int = 2048) -> Iterator[bytes]:
+        """Streaming :meth:`synthesize_long`: int16 PCM chunks across every
+        text chunk, the first after ``min_first_chunk`` frames of the first
+        one, as :meth:`synthesize_stream`, then one decode late.
+
+        Chunk ``i > 0`` is prompted with the references plus the pair
+        (chunk ``i - 1``'s text, its last ``carry_frames`` codes without the
+        EOS frame); ``carry_frames=0`` carries nothing.  Only the first chunk
+        may use the stored prefix (``references=None``); the later ones
+        prefill their references and carry.  Each text chunk has its own
+        stateful codec: chunks end at sentences, so the joins fall in
+        pauses."""
+        chunks = split_text(text, max_chars)
+        base = list(references) if references is not None else self.get_references()
+        prev: VoiceProfile | None = None
+        for i, chunk_text in enumerate(chunks):
+            # None lets the first chunk use the stored prefix
+            refs = references if prev is None else base + [prev]
+            sv = _StreamVocoder(self)
+
+            def flush(buffer):
+                return (*sv.decode_async(np.concatenate(buffer, axis=1)), 0)
+
+            collected: list[np.ndarray] = []
+            yield from self._stream_text(
+                chunk_text, refs, flush, first=min_first_chunk if i == 0 else None,
+                every=chunk_tokens, max_tokens=max_tokens_per_chunk, temperature=temperature,
+                top_p=top_p, repetition_penalty=repetition_penalty, collected=collected)
+            if collected and carry_frames > 0:  # [:, -0:] would carry the whole chunk
+                codes = np.concatenate(collected, axis=1)
+                if codes.shape[1] > 1:  # the stream yields the EOS frame: not carried
+                    codes = codes[:, :-1]
+                prev = VoiceProfile(codes=codes[:, -carry_frames:].astype(np.int64),
+                                    text=chunk_text, name="_carry")
 
     # -- serving ---------------------------------------------------------------
 
@@ -615,6 +695,24 @@ class FishTTS:
 
     def _decode_to_pcm(self, codes: np.ndarray) -> bytes:
         return to_pcm_bytes(self._decode_codes(codes))
+
+    def encode_reference(self, audio_bytes: bytes, text: str) -> VoiceProfile:
+        """A voice profile from reference WAV audio and its transcript: the
+        audio at the codec's rate, zero-padded to a frame bucket, encoded
+        (``vocoder.dac_encode``) on the instance's device in the codec's
+        dtype; the codes of its frames, int64 (K, frames)."""
+        if self._vocoder_params is None:
+            raise RuntimeError("Vocoder not loaded")
+        audio = read_wav(audio_bytes, self.sample_rate)
+        fl = self._vocoder_cfg.frame_length
+        n_frames = max(1, -(-len(audio) // fl))
+        padded = np.zeros((1, 1, _vocoder_bucket(n_frames) * fl), np.float32)
+        padded[0, 0, :len(audio)] = audio
+        dtype = self._vocoder_params["encoder"]["stem"]["w"].dtype
+        codes = vocoder.dac_encode(self._vocoder_params, self._vocoder_cfg,
+                                   torch.from_numpy(padded).to(self.device, dtype))
+        return VoiceProfile(codes=codes[0, :, :n_frames].cpu().numpy().astype(np.int64),
+                            text=text)
 
     @property
     def engine(self) -> GenerationEngine:

@@ -11,12 +11,20 @@
 - ``sample_decision_margins``: the same for any sampler mode of
   ``engine/sampling`` (threshold, full sort, top-k), against logits that
   may each move by a tolerance.
+- ``vq_decision_margins``: the codec encoder's codes against a reference
+  encode's, excusing a differing code only where the reference's own
+  float64 similarities of the two codebook entries nearly tie.
+- ``s8_plain_trace`` and ``s8_decision_margins``: the fast decoder's
+  ``"s8"`` mode against its plain version, row by quantized row, excusing
+  a stream's later positions only from a row whose int8 values differ by
+  one step at elements the plain version put at a rounding tie.
 
 Both write their ``.tiktoken`` vocabulary into a fresh temporary directory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import tempfile
 from pathlib import Path
@@ -37,6 +45,7 @@ from fish_tts_tpu_torch.models.tokenizer import (
     tiny_special_tokens,
     write_tiny_vocab,
 )
+from fish_tts_tpu_torch.ops import fast_decoder
 from fish_tts_tpu_torch.ops.fast_decoder import NEG
 from fish_tts_tpu_torch.ops.sampler_kernel import BISECT_ITERS
 
@@ -269,3 +278,150 @@ def make_s1_mini_bundle(seed: int = 0, device="cuda", with_vocoder: bool = True)
         vparams = vocoder.init_vocoder_params(_generator(seed + 1, device), vcfg,
                                               dtype=torch.bfloat16)
     return cfg, params, tokenizer, vcfg, vparams
+
+
+def vq_decision_margins(codes, codes_ref, qp, z_ref, margin: float) -> dict:
+    """Hold encoded codes (B, 1+R, T) against a reference encode's.
+
+    ``z_ref`` (B, C, T) is the reference's codebook input
+    (``vocoder.quantizer_latent``) and ``qp`` the quantizer's parameters.
+    Per frame the books are compared in order up to the first differing one
+    (a different code changes the residual of every later book).  There the
+    reference's own similarities, in float64, of its entry and the other
+    one with the normalized projection of its residual must be within
+    ``margin``.  Returns {"frames": frames compared, "near_ties": frames
+    excused, "worst_gap": the largest similarity gap excused, "failures":
+    [messages]}."""
+    codes, codes_ref = codes.cpu().long(), codes_ref.cpu().long()
+    z = z_ref.cpu().double()
+    books = [{k: ({kk: vv.cpu().double() for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.cpu().double()) for k, v in vq.items()} for vq in vocoder.vq_books(qp)]
+    out = {"frames": codes.shape[0] * codes.shape[2], "near_ties": 0, "worst_gap": 0.0,
+           "failures": []}
+    for b, t in (codes != codes_ref).any(dim=1).nonzero().tolist():
+        j = int((codes[b, :, t] != codes_ref[b, :, t]).nonzero()[0])
+        residual = z[b:b + 1, :, t:t + 1]
+        for i in range(j):  # the books before j agree: the reference's residual
+            residual = residual - vocoder._vq_embed_codes(books[i], codes_ref[b:b + 1, i, t:t + 1])
+        e = vocoder._vq_in_proj(books[j], residual)[0, :, 0]
+        e = e / (torch.linalg.vector_norm(e) + 1e-12)
+        cb = books[j]["codebook"]
+        sim = (cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)) @ e
+        want, got = int(codes_ref[b, j, t]), int(codes[b, j, t])
+        gap = abs(float(sim[want] - sim[got]))
+        if gap <= margin:
+            out["near_ties"] += 1
+            out["worst_gap"] = max(out["worst_gap"], gap)
+        else:
+            out["failures"].append(f"stream {b} frame {t} book {j}: code {got} != {want}, "
+                                   f"similarity gap {gap:.3g} > {margin:.3g}")
+    return out
+
+
+@contextlib.contextmanager
+def s8_plain_trace():
+    """Record, while it is open, (``x / sc`` (B, n) f32, ``sc`` (B, 1)) of
+    each activation row the plain ``"s8"`` product quantizes
+    (``fast_decoder.s8dot``), in order, into the list it yields; a product
+    of the same input as the one before (W_1 then W_3) adds nothing, so the
+    rows follow ``fast_decoder.s8_trace_layout(cfg, kernel=False)``."""
+    real, rows, last = fast_decoder.s8dot, [], []
+
+    def traced(x, w):
+        if not last or x is not last[0]:
+            rows.append(fast_decoder.s8_scaled(x))
+            last[:] = [x]
+        return real(x, w)
+
+    fast_decoder.s8dot = traced
+    try:
+        yield rows
+    finally:
+        fast_decoder.s8dot = real
+
+
+S8_SCALE_TOL = 1e-5  # a row's scale against the plain version's, relatively
+
+
+def s8_decision_margins(cfg, codes, codes_plain, logits, logits_plain, gumbel, temperature,
+                        top_p, tol: float, trace_rows, trace_scales, plain_rows,
+                        tie: float) -> dict:
+    """Hold the ``"s8"`` kernel against its plain version row by quantized row.
+
+    ``trace_rows`` (T, B, width) int8 and ``trace_scales`` (T, B) are the
+    kernel's ``fast_decoder.s8_trace``; ``plain_rows`` what
+    :func:`s8_plain_trace` recorded of the plain call on the same inputs.
+    Per stream the rows are compared in order, each scale within
+    S8_SCALE_TOL of the plain one, relatively.  At the first row whose int8
+    values differ, every differing element must be one step from the plain
+    version's, at an ``x / sc`` within ``tie`` of a .5 boundary (a last-bit
+    difference upstream rounds it the other way).  The positions before
+    that row's are held by :func:`fast_decision_margins` at ``tol``; from it
+    on the stream is excused, since every later row quantizes values the
+    moved step has changed.  Rows past a stream's first differing code are
+    not compared: the position after it embeds another code.  Returns {"excused": positions excused,
+    "witnesses": [(stream, row, (position, layer, kind), elements, widest
+    tie distance)], "scale_err": the largest relative scale difference
+    compared, "knife_edges", "failures", "max_abs_err", "compared"}."""
+    layout = fast_decoder.s8_trace_layout(cfg)
+    plain_layout = fast_decoder.s8_trace_layout(cfg, kernel=False)
+    if len(plain_rows) != len(plain_layout) or trace_rows.shape[0] < len(layout):
+        raise ValueError(f"s8_decision_margins: {len(plain_rows)} plain and "
+                         f"{trace_rows.shape[0]} traced rows, want {len(plain_layout)} and "
+                         f"{len(layout)}")
+    at = {key: i for i, key in enumerate(plain_layout)}
+    rows, scales = trace_rows.cpu().long(), trace_scales.cpu().double()
+    B, R = codes_plain.shape
+    first = [None] * B  # each stream's first differing row
+    # rows are compared up to the first differing code: the position after
+    # it embeds another code (fast_decision_margins holds that code)
+    stop = [R + 1] * B
+    for b, r in (codes.cpu() != codes_plain.cpu()).nonzero().tolist():
+        stop[b] = min(stop[b], r + 2)
+    out = {"excused": 0, "witnesses": [], "scale_err": 0.0, "knife_edges": 0,
+           "failures": [], "max_abs_err": 0.0, "compared": 0}
+    for t, key in enumerate(layout):
+        q, sc = (v.cpu().double() for v in plain_rows[at[key]])
+        want = torch.round(q).long()
+        got = rows[t, :, :q.shape[1]]
+        for b in range(B):
+            if first[b] is not None or key[0] >= stop[b]:
+                continue
+            err = abs(float(scales[t, b]) / float(sc[b, 0]) - 1)
+            out["scale_err"] = max(out["scale_err"], err)
+            if not err <= S8_SCALE_TOL:
+                out["failures"].append(f"stream {b} row {t} {key}: scale {float(scales[t, b])!r}"
+                                       f" against {float(sc[b, 0])!r}")
+                first[b] = t
+                continue
+            diff = (got[b] != want[b]).nonzero().flatten()
+            if not len(diff):
+                continue
+            first[b] = t
+            dist = float(((q[b, diff] - torch.floor(q[b, diff])) - 0.5).abs().max())
+            steps = int((got[b, diff] - want[b, diff]).abs().max())
+            out["witnesses"].append((b, t, key, len(diff), dist))
+            if steps != 1 or not dist <= tie:
+                out["failures"].append(
+                    f"stream {b} row {t} {key}: {len(diff)} int8 value(s) differ, by up to "
+                    f"{steps} step(s), at tie distances up to {dist:.3g} (limit {tie:.3g})")
+    for b in range(B):
+        held = R if first[b] is None else max(layout[first[b]][0] - 1, 0)
+        out["excused"] += R - held
+        if not held:
+            continue
+        m = fast_decision_margins(codes[b:b + 1, :held], codes_plain[b:b + 1, :held],
+                                  logits[b:b + 1, :held], logits_plain[b:b + 1, :held],
+                                  gumbel[b:b + 1, :held], _row(temperature, b),
+                                  _row(top_p, b), tol)
+        out["failures"] += [f"stream {b}" + f[len("stream 0"):] for f in m["failures"]]
+        for k in ("knife_edges", "compared"):
+            out[k] += m[k]
+        out["max_abs_err"] = max(out["max_abs_err"], m["max_abs_err"])
+    return out
+
+
+def _row(x, b: int) -> torch.Tensor:
+    """Stream b's entry of a scalar or (B, 1) sampling parameter, as (1, 1)."""
+    t = torch.as_tensor(x, dtype=torch.float32).reshape(-1).cpu()
+    return t[b if t.numel() > 1 else 0].reshape(1, 1)

@@ -7,7 +7,8 @@ package's ``tests/test_http_serving.py``.
 Tolerances: served codes equal the solo run's with the same seed; PCM
 within one int16 step of the joint decode of the same codes, and of the JAX
 package's ``ServeSession`` fed the same codes; HTTP PCM equal to a direct
-session's.  ``PUT /voices`` answers 501: the port has no codec encoder yet.
+session's.  ``PUT /voices`` answers 501 from a handler built without an
+encoder (``tests/test_torch_encoder.py`` registers voices through one).
 """
 
 import base64
@@ -28,7 +29,7 @@ from fish_tts_tpu.testing import make_tiny_tts as make_jax_tts
 from fish_tts_tpu.utils.text import split_text as jax_split_text
 from fish_tts_tpu_torch import FishTTS, VoiceProfile, synthesizer, testing
 from fish_tts_tpu_torch.engine import serve as tserve
-from fish_tts_tpu_torch.serving.http import ServeDriver, make_server
+from fish_tts_tpu_torch.serving.http import ServeDriver, _make_handler, make_server
 from fish_tts_tpu_torch.synthesizer import AudioEvent, _LongChain
 from fish_tts_tpu_torch.utils.audio import to_wav_bytes
 from fish_tts_tpu_torch.utils.text import split_text
@@ -510,20 +511,31 @@ def test_per_request_voice_over_http(server):
 
 
 def test_put_voice_answers_501_without_an_encoder(server):
-    """Both bodies on one kept-alive connection: the first is read whole
-    before the answer, so the second request parses."""
-    addr, tts = server
+    """A handler built with no encoder answers 501; both bodies go on one
+    kept-alive connection: the first is read whole before the answer, so the
+    second request parses."""
+    from http.server import ThreadingHTTPServer
+
+    _, tts = server
     sr = tts._vocoder_cfg.sample_rate
+    gura = VoiceProfile(codes=np.zeros((tts._cfg.num_codebooks, 2), np.int64), name="gura")
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(
+        None, sr, voices={"gura": gura}, encode_reference=None))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
     wav = to_wav_bytes(np.sin(np.linspace(0, 880 * np.pi, sr)).astype(np.float32) * 0.3, sr)
-    conn = http.client.HTTPConnection(*addr, timeout=60)
-    for body in (json.dumps({"wav_b64": base64.b64encode(wav).decode(), "text": "a ref"}),
-                 "[1]"):
-        conn.request("PUT", "/voices/newvoice", body)
-        r = conn.getresponse()
-        assert r.status == 501 and "encoder" in json.loads(r.read())["error"]
-    conn.request("GET", "/voices")
-    assert json.loads(conn.getresponse().read())["voices"] == ["gura"]
-    conn.close()
+    conn = http.client.HTTPConnection(*srv.server_address, timeout=60)
+    try:
+        for body in (json.dumps({"wav_b64": base64.b64encode(wav).decode(), "text": "a ref"}),
+                     "[1]"):
+            conn.request("PUT", "/voices/newvoice", body)
+            r = conn.getresponse()
+            assert r.status == 501 and "encoder" in json.loads(r.read())["error"]
+        conn.request("GET", "/voices")
+        assert json.loads(conn.getresponse().read())["voices"] == ["gura"]
+    finally:
+        conn.close()
+        srv.shutdown()
 
 
 def test_bad_body_and_unknown_path(server):
