@@ -78,7 +78,16 @@ printing its own lines; any failure raises and the script exits non-zero:
    each kernel's launch count in each call, which must be what the call's
    route implies (``decode.route``: a kernel on it launches once per frame,
    the slow stack only in decode; a kernel off it not at all), and checks
-   that every decode frame was a graph replay (none eager).  Then
+   that every decode frame was a graph replay (none eager).  After the
+   first call, the convert phase (``phase_convert``): the same weights
+   written as the reference's ``model.pth`` (bf16) and ``codec.pth`` (f32,
+   weight norm split) into a temporary directory; ``FishTTS`` on it, and on
+   the directory ``python -m fish_tts_tpu_torch.scripts.convert_checkpoint
+   --verify`` makes of it, each giving the first call's codes and WAV bit
+   for bit with the same seed; ``init_model`` on the converted directory
+   with the module-level ``generate_long``, its codes equal to the in-memory
+   engine's with the same seed; load times, file sizes, coverage reports
+   and launches (path "convert").  Then
    the same call on the graph route and on the eager loop, ROUTE_RUNS times
    each in turns plus one profiled call each: frames/s, RTF, the host's
    time per decode frame and the device's busy share of the decode span.
@@ -170,7 +179,8 @@ those of the untied-head call, the "s8" variant's those of the A/B run,
 each read from counts set to 0 just before it; ``launches_by_path`` each
 path's launches summed over its checked runs, each run read from its own
 zeroed counts: ab (the A/B run), main (every ``synthesize`` call of phases
-5 and 6), stream, batch, serve (int8 and bf16), encode (the call with the
+5 and 6), convert (the two loaded instances' calls and the init_model
+engine's), stream, batch, serve (int8 and bf16), encode (the call with the
 encoded profile) and long) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside this file, it exits non-zero and
 prints no result.
@@ -1301,6 +1311,7 @@ def phase_main(dev, profile_dir=None):
     seen = observe(tts)
     launches = synthesize_once(tts, seen, "synthesize")
     first_wav = seen["wav"]
+    phase_convert(tts, bundle, seen)
     synthesize_once(tts, seen, f"synthesize with a {REF_FRAMES}-frame reference",
                     references=[reference_profile(tts._cfg)])
     compare_routes(tts, seen)
@@ -1314,6 +1325,141 @@ def phase_main(dev, profile_dir=None):
     phase_http(tts, first_wav, profile)
     phase_long(tts)
     return launches
+
+
+# --- phase 5b: the reference's checkpoint files ------------------------------------
+
+
+def convert_instance(d: Path, label: str, want_codes, want_wav: bytes) -> float:
+    """``FishTTS(model_dir=d, precision="int8")`` built, warmed up as phase 5's
+    instance is and called as its first ``synthesize`` is, with the same
+    seed: its codes and WAV must equal that call's, bit for bit.  The call
+    counts to path "convert"; the instance is freed.  Returns the seconds
+    the load took (construction without the warmup)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch import FishTTS
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tts = FishTTS(model_dir=d, device="cuda", precision="int8", warmup=False, seed=SEED)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    tts._run_warmup()  # what warmup=True runs: one generation, the noise's first draw
+    seen = observe(tts)
+    synthesize_once(tts, seen, f"convert: {label}", path="convert")
+    if seen["codes"].shape != want_codes.shape or not np.array_equal(seen["codes"], want_codes):
+        fail(f"convert: {label}: codes {seen['codes'].shape} differ from the in-memory "
+             f"instance's first call {want_codes.shape}")
+    if seen["wav"] != want_wav:
+        fail(f"convert: {label}: the WAV differs from the in-memory instance's first call")
+    print(f"convert: {label}: loaded in {load_s:.2f} s; codes ({seen['codes'].shape[1]} "
+          f"frames) and WAV ({len(want_wav)} bytes) equal to the in-memory instance's first "
+          f"call", flush=True)
+    del tts, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return load_s
+
+
+def phase_convert(tts, bundle, seen) -> None:
+    """Phase 5's S1-mini bundle written in the reference's checkpoint layout
+    (``testing.write_reference_dir``: ``model.pth`` bf16, ``codec.pth`` f32
+    with every conv's weight norm split into
+    ``parametrizations.weight.original0/1``, keys under ``generator.``) into
+    a temporary directory with config.json, tokenizer.tiktoken and
+    special_tokens.json, removed at the end.  Then: ``FishTTS`` on that
+    directory and on the directory ``python -m
+    fish_tts_tpu_torch.scripts.convert_checkpoint --verify`` converts it
+    into, each with the codes and WAV of phase 5's first call
+    (``convert_instance``); ``init_model`` on the converted directory and
+    the module-level ``generate_long``, whose codes must equal phase 5's
+    engine's ``generate_long`` with the same arguments and seed.  Prints
+    the load times (.pth against safetensors), the file sizes, the coverage
+    reports and the launches (path "convert")."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch import testing
+    from fish_tts_tpu_torch.models import generate_long, init_model
+
+    t0 = time.perf_counter()
+    want_codes, want_wav = seen["codes"].copy(), seen["wav"]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_convert_"))
+    try:
+        t = time.perf_counter()
+        ref = testing.write_reference_dir(root / "reference", bundle)
+        write_s = time.perf_counter() - t
+        files = sorted(f.name for f in ref.iterdir())
+        if files != ["codec.pth", "config.json", "model.pth", "special_tokens.json",
+                     "tokenizer.tiktoken"]:
+            fail(f"convert: the reference directory holds {files}")
+        sizes = {f: (ref / f).stat().st_size for f in ("model.pth", "codec.pth")}
+        print(f"convert: model.pth ({sizes['model.pth'] / 1e9:.3f} GB, bf16) and codec.pth "
+              f"({sizes['codec.pth'] / 1e9:.3f} GB, f32, weight norm) written in "
+              f"{write_s:.1f} s", flush=True)
+        pth_s = convert_instance(ref, "model.pth + codec.pth", want_codes, want_wav)
+
+        out = root / "native"
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fish_tts_tpu_torch.scripts.convert_checkpoint", str(ref),
+             str(out), "--verify"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        convert_s = time.perf_counter() - t
+        for line in proc.stdout.splitlines():
+            print(f"convert: {line}", flush=True)
+        if proc.returncode != 0:
+            fail(f"convert: convert_checkpoint --verify exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        shutil.rmtree(ref)
+        sizes.update({f: (out / f).stat().st_size
+                      for f in ("lm.safetensors", "vocoder.safetensors")})
+        print(f"convert: convert_checkpoint --verify took {convert_s:.1f} s (its own process); "
+              f"lm.safetensors {sizes['lm.safetensors'] / 1e9:.3f} GB (bf16), "
+              f"vocoder.safetensors {sizes['vocoder.safetensors'] / 1e9:.3f} GB (f32)",
+              flush=True)
+        native_s = convert_instance(out, "converted safetensors", want_codes, want_wav)
+
+        kw = dict(max_new_tokens=MAX_TOKENS, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                  repetition_penalty=SAMPLING[2])
+        # phase 5's engine with the noise the first generation after reseed(0)
+        # draws, its own sequence left as it is; a fresh engine draws that first
+        want = [r.codes for r in tts.engine.generate_long(
+            TEXT, noise=tts.engine._seed_noise(0), **kw) if r.action == "sample"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine, _ = init_model(out, device="cuda", precision="int8")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        zero_counts()
+        got = [r.codes for r in generate_long(model=engine, text=TEXT, **kw)
+               if r.action == "sample"]
+        torch.cuda.synchronize()
+        if len(got) != 1 or len(want) != 1 or got[0].shape != want[0].shape or (
+                not np.array_equal(got[0], want[0])):
+            fail(f"convert: init_model + generate_long codes {[c.shape for c in got]} differ "
+                 f"from phase 5's engine's {[c.shape for c in want]}")
+        frames = got[0].shape[1] + 1  # generate_long strips the final frame
+        launches, replays, _ = route_counts(engine, "convert: init_model + generate_long",
+                                            frames - 2, "convert")
+        print(f"convert: init_model loaded in {init_s:.2f} s; generate_long: {frames} frames, "
+              f"codes equal to phase 5's engine's with the same seed; kernel launches "
+              f"{json.dumps(launches)}, {replays} graph replays", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"convert: loads .pth {pth_s:.2f} s, safetensors {native_s:.2f} s, init_model "
+          f"{init_s:.2f} s; launches {json.dumps(PATH_LAUNCHES['convert'])}; phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def eager_route(engine):

@@ -9,8 +9,15 @@ wrapper runs its plain PyTorch version instead.
 Usage:
     from fish_tts_tpu_torch import FishTTS
 
-    tts = FishTTS(model_dir="/path/to/native-checkpoint")  # device="cuda"
+    tts = FishTTS(model_dir="/path/to/checkpoint")  # device="cuda"
     wav = tts.synthesize("Hello world")
+
+``model_dir`` holds ``config.json``, ``tokenizer.tiktoken`` and
+``special_tokens.json`` with the weights in either format: the native
+``lm.safetensors`` / ``vocoder.safetensors``, or the reference's
+``model.pth`` / ``codec.pth``, converted as they load.
+``python -m fish_tts_tpu_torch.scripts.convert_checkpoint`` converts such
+a directory once.
 """
 
 from fish_tts_tpu_torch.synthesizer import (  # noqa: F401

@@ -21,6 +21,7 @@ from fish_tts_tpu_torch.config import DualARConfig
 from fish_tts_tpu_torch.ops.attention import NEG_INF, gqa_attention, gqa_attention_two_part
 from fish_tts_tpu_torch.ops.norms import rms_norm
 from fish_tts_tpu_torch.ops.rope import apply_rotary_emb, precompute_freqs_cis
+from fish_tts_tpu_torch.utils.checkpoint import flatten_params
 from fish_tts_tpu_torch.utils.quantize import is_quantized, qgather, qhead, qmm
 
 Params = dict[str, Any]
@@ -277,6 +278,12 @@ def new_fast_cache(params: Params, cfg: DualARConfig, batch: int) -> Params:
     """A fresh per-frame fast KV cache in the parameters' dtype and device."""
     norm = params["norm"]
     return _fast_cache(cfg, batch, norm.dtype, norm.device)
+
+
+def param_count(params: Params) -> int:
+    """Elements in every leaf (an int8 weight counts its values and its
+    scales)."""
+    return sum(t.numel() for t in flatten_params(params).values())
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:

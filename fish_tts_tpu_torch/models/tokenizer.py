@@ -112,6 +112,14 @@ class FishTokenizer:
     def vocab_size(self) -> int:
         return len(self._ranks)
 
+    @property
+    def num_special_tokens(self) -> int:
+        return len(self.all_special_tokens_with_ids)
+
+    @property
+    def total_vocab_size(self) -> int:
+        return self.vocab_size + self.num_special_tokens
+
     def get_token_id(self, token: str) -> int:
         return self.all_special_tokens_with_ids[token]
 

@@ -6,8 +6,9 @@ long text past one context, ``synthesize_long(text)`` /
 ``encode_reference(wav, text)``, and continuous-batching serving,
 ``FishTTS.serve() -> ServeSession``, on the card.
 
-Port of ``fish_tts_tpu/synthesizer.py``: ``FishTTS`` (from a native model
-directory or a testing bundle, precision ``bf16`` by default, ``fp16``,
+Port of ``fish_tts_tpu/synthesizer.py``: ``FishTTS`` (from a model
+directory, native or the reference's ``model.pth``/``codec.pth``, or a
+testing bundle, precision ``bf16`` by default, ``fp16``,
 ``fp32`` or ``int8``), single and batched synthesis, streamed or not, with
 ``references=`` per call or the stored ones (``set_references`` and
 friends: prefilled once into the engine's KV prefix), long text in
@@ -58,6 +59,10 @@ _instance_lock = threading.Lock()
 _VOCODER_BUCKETS = (10, 20, 40, 80, 160, 320, 640, 1280, 2048)
 
 PRECISIONS = ("bf16", "fp16", "fp32", "int8")
+# Why ``vocoder_device`` refuses: the port serves on one card (multi-device
+# is still to be ported).
+ONE_CARD_VOCODER = ("vocoder_device: the port serves on one card; the codec runs on the LM's "
+                    "device")
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
            "int8": torch.bfloat16}
 
@@ -204,8 +209,10 @@ class FishTTS:
 
     ``_testing_bundle`` is ``(cfg, params, tokenizer, vocoder_cfg,
     vocoder_params)`` with parameters in the port's layout (see
-    ``testing.py``); otherwise ``model_dir`` holds a native checkpoint
-    (config.json, tokenizer.tiktoken, lm.safetensors, vocoder.safetensors).
+    ``testing.py``); otherwise ``model_dir`` holds config.json,
+    tokenizer.tiktoken (and special_tokens.json) with the weights either
+    native (lm.safetensors, vocoder.safetensors, vocoder_config.json) or
+    the reference's model.pth and codec.pth, converted as they load.
     """
 
     def __init__(self, model_dir: str | Path | None = None, device: str = "cuda",
@@ -247,19 +254,24 @@ class FishTTS:
 
     @staticmethod
     def _load_models(d: Path):
+        """LM, tokenizer and codec from a checkpoint directory: the native
+        ``lm.safetensors`` / ``vocoder.safetensors``, or else the
+        reference's ``model.pth`` / ``codec.pth``, converted as they load."""
         t0 = time.perf_counter()
         cfg = DualARConfig.from_json(d)
         tokenizer = FishTokenizer.from_pretrained(d)
-        if not (d / "lm.safetensors").exists():
-            raise FileNotFoundError(f"No lm.safetensors in {d}")
-        params = ckpt.from_jax_params(ckpt.load_params(d / "lm.safetensors"))
+        params = ckpt.from_jax_params(ckpt.load_lm_dir(d, cfg))
+        logger.info("Transformer loaded in %.1fs", time.perf_counter() - t0)
+        # the native format may carry the codec's wiring; the default otherwise
         vcfg = (VocoderConfig.from_json(d) if (d / "vocoder_config.json").exists()
                 else VocoderConfig())
         vparams = None
-        if (d / "vocoder.safetensors").exists():
-            vparams = ckpt.from_jax_params(ckpt.load_params(d / "vocoder.safetensors"))
+        for name in ("vocoder.safetensors", "codec.pth"):
+            if (d / name).exists():
+                vparams = ckpt.from_jax_params(ckpt.load_vocoder_file(d / name, vcfg))
+                break
         else:
-            logger.warning("vocoder.safetensors not found, vocoder not loaded")
+            logger.warning("codec weights not found, vocoder not loaded")
         logger.info("Models loaded in %.1fs", time.perf_counter() - t0)
         return cfg, params, tokenizer, vcfg, vparams
 
@@ -852,8 +864,7 @@ class ServeSession:
         from fish_tts_tpu_torch.engine.serve import ContinuousBatcher
 
         if vocoder_device is not None:
-            raise NotImplementedError("vocoder_device: the port serves on one card; the codec "
-                                      "runs on the LM's device")
+            raise NotImplementedError(ONE_CARD_VOCODER)
         self._tts = tts
         self._srv = ContinuousBatcher(tts._engine, slots=slots, max_queue=max_queue)
         self._slots = slots

@@ -18,13 +18,20 @@
   ``"s8"`` mode against its plain version, row by quantized row, excusing
   a stream's later positions only from a row whose int8 values differ by
   one step at elements the plain version put at a rounding tie.
+- ``to_reference_lm_state_dict`` / ``to_reference_codec_state_dict``: a
+  bundle's parameters as the reference's ``model.pth`` / ``codec.pth``
+  state dicts, the inverse of ``utils.checkpoint``'s converters;
+  ``write_reference_dir`` writes a whole reference checkpoint directory.
 
 Both write their ``.tiktoken`` vocabulary into a fresh temporary directory.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import dataclasses
+import json
 import math
 import tempfile
 from pathlib import Path
@@ -425,3 +432,184 @@ def _row(x, b: int) -> torch.Tensor:
     """Stream b's entry of a scalar or (B, 1) sampling parameter, as (1, 1)."""
     t = torch.as_tensor(x, dtype=torch.float32).reshape(-1).cpu()
     return t[b if t.numel() > 1 else 0].reshape(1, 1)
+
+
+# --- the reference's checkpoint layout -------------------------------------------
+
+
+def _ref_tensor(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A state-dict entry: a CPU tensor of its own storage (a slice of a
+    stacked weight would otherwise save the whole stack)."""
+    return torch.empty(t.shape, dtype=dtype).copy_(t.detach())
+
+
+def to_reference_lm_state_dict(params, cfg, dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    """The port's DualAR tree (float, ``(out, in)`` linears) as the
+    reference's ``model.pth`` state dict in ``dtype``: per-layer keys,
+    linear weights ``(out, in)``."""
+    sd = {}
+
+    def put(key, t):
+        sd[key] = _ref_tensor(t, dtype)
+
+    for k in ("embeddings", "codebook_embeddings", "norm", "fast_embeddings", "fast_norm",
+              "fast_output", "output"):
+        if k in params:
+            put(f"{k}.weight", params[k])
+    if "fast_project_in" in params:
+        put("fast_project_in.weight", params["fast_project_in"]["w"])
+        put("fast_project_in.bias", params["fast_project_in"]["b"])
+    names = {"wqkv": "attention.wqkv.weight", "wo": "attention.wo.weight",
+             "w1": "feed_forward.w1.weight", "w3": "feed_forward.w3.weight",
+             "w2": "feed_forward.w2.weight", "attention_norm": "attention_norm.weight",
+             "ffn_norm": "ffn_norm.weight", "wqkv_b": "attention.wqkv.bias",
+             "wo_b": "attention.wo.bias", "q_norm": "attention.q_norm.weight",
+             "k_norm": "attention.k_norm.weight"}
+    for stack, n in (("layers", cfg.n_layer), ("fast_layers", cfg.n_fast_layer)):
+        for k, v in params[stack].items():
+            for i in range(n):
+                put(f"{stack}.{i}.{names[k]}", v[i])
+    return sd
+
+
+WEIGHT_NORM_NAMINGS = ("parametrizations", "legacy", None)
+
+
+def to_reference_codec_state_dict(vparams, vcfg, naming: str | None = "parametrizations",
+                                  prefix: str = "generator.",
+                                  dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The codec tree as the reference's ``codec.pth`` state dict in
+    ``dtype``, keys under ``prefix``.  Every conv kernel is split by torch
+    weight norm in ``naming`` (``"parametrizations"``:
+    ``parametrizations.weight.original0/1``, ``"legacy"``:
+    ``weight_g/weight_v``; None keeps a plain ``weight``): ``v`` the
+    kernel, ``g`` its norm over every axis but the first (float64, then
+    ``dtype``), so the converter's fold gives the kernel back to within an
+    f32 step.  Linear weights are transposed to ``(out, in)``."""
+    if naming not in WEIGHT_NORM_NAMINGS:
+        raise ValueError(f"naming={naming!r}: expected one of {WEIGHT_NORM_NAMINGS}")
+    sd = {}
+
+    def put(key, t):
+        sd[prefix + key] = _ref_tensor(t, dtype)
+
+    def conv(key, p):
+        w = p["w"]
+        if naming is None:
+            put(f"{key}.weight", w)
+        else:
+            w64 = w.detach().cpu().double()
+            g = torch.sqrt((w64 ** 2).sum(dim=tuple(range(1, w.ndim)), keepdim=True))
+            gk, vk = (("parametrizations.weight.original0", "parametrizations.weight.original1")
+                      if naming == "parametrizations" else ("weight_g", "weight_v"))
+            put(f"{key}.{gk}", g)
+            put(f"{key}.{vk}", w)
+        put(f"{key}.bias", p["b"])
+
+    def linear(key, p):
+        put(f"{key}.weight", p["w"].transpose(0, 1))
+        put(f"{key}.bias", p["b"])
+
+    def unit(key, p):
+        put(f"{key}.block.0.alpha", p["snake1"])
+        conv(f"{key}.block.1.conv", p["conv1"])
+        put(f"{key}.block.2.alpha", p["snake2"])
+        conv(f"{key}.block.3.conv", p["conv2"])
+
+    def wlt(key, p):
+        lay = p["layers"]
+        names = {"wqkv": "attention.wqkv.weight", "wo": "attention.wo.weight",
+                 "w1": "feed_forward.w1.weight", "w3": "feed_forward.w3.weight",
+                 "w2": "feed_forward.w2.weight"}
+        plain = {"attention_norm": "attention_norm.weight", "ffn_norm": "ffn_norm.weight",
+                 "attn_scale": "attention_layer_scale.gamma",
+                 "ffn_scale": "ffn_layer_scale.gamma",
+                 "rel_pos_embeddings": "attention.rel_pos_embeddings"}
+        for i in range(lay["wqkv"].shape[0]):
+            for k, name in names.items():
+                put(f"{key}.layers.{i}.{name}", lay[k][i].transpose(0, 1))
+            for k, name in plain.items():
+                if k in lay:
+                    put(f"{key}.layers.{i}.{name}", lay[k][i])
+        put(f"{key}.norm.weight", p["norm"])
+        for k in ("input_proj", "output_proj"):
+            if k in p:
+                linear(f"{key}.{k}", p[k])
+
+    def convnext(key, p):
+        conv(f"{key}.dwconv.conv", p["dwconv"])
+        put(f"{key}.norm.weight", p["norm_w"])
+        put(f"{key}.norm.bias", p["norm_b"])
+        linear(f"{key}.pwconv1", p["pw1"])
+        linear(f"{key}.pwconv2", p["pw2"])
+        put(f"{key}.gamma", p["gamma"])
+
+    def vq(key, p):
+        conv(f"{key}.in_proj", p["in_proj"])
+        conv(f"{key}.out_proj", p["out_proj"])
+        put(f"{key}.codebook.weight", p["codebook"])
+
+    enc = vparams["encoder"]
+    conv("encoder.block.0.conv", enc["stem"])
+    for b, block in enumerate(enc["blocks"]):
+        base = f"encoder.block.{b + 1}.block"
+        for u, p in enumerate(block["units"]):
+            unit(f"{base}.{u}", p)
+        put(f"{base}.3.alpha", block["snake"])
+        conv(f"{base}.4.conv", block["down"])
+        if "wlt" in block:
+            wlt(f"{base}.5", block["wlt"])
+    n = len(enc["blocks"])
+    put(f"encoder.block.{n + 1}.alpha", enc["final_snake"])
+    conv(f"encoder.block.{n + 2}.conv", enc["final_conv"])
+
+    q = vparams["quantizer"]
+    for i, p in enumerate(q["downsample"]):
+        conv(f"quantizer.downsample.{i}.0.conv", p["conv"])
+        convnext(f"quantizer.downsample.{i}.1", p["convnext"])
+    wlt("quantizer.pre_module", q["pre"])
+    wlt("quantizer.post_module", q["post"])
+    vq("quantizer.semantic_quantizer.quantizers.0", q["semantic"])
+    for i, p in enumerate(q["residual"]):
+        vq(f"quantizer.quantizer.quantizers.{i}", p)
+    for i, p in enumerate(q["upsample"]):
+        conv(f"quantizer.upsample.{i}.0.conv", p["tconv"])
+        convnext(f"quantizer.upsample.{i}.1", p["convnext"])
+
+    dec = vparams["decoder"]
+    conv("decoder.model.0.conv", dec["stem"])
+    for b, block in enumerate(dec["blocks"]):
+        base = f"decoder.model.{b + 1}.block"
+        put(f"{base}.0.alpha", block["snake"])
+        conv(f"{base}.1.conv", block["up"])
+        for u, p in enumerate(block["units"]):
+            unit(f"{base}.{u + 2}", p)
+    n = len(dec["blocks"])
+    put(f"decoder.model.{n + 1}.alpha", dec["final_snake"])
+    conv(f"decoder.model.{n + 2}.conv", dec["final_conv"])
+    return sd
+
+
+def write_reference_dir(out, bundle, naming: str | None = "parametrizations",
+                        lm_dtype=torch.bfloat16) -> Path:
+    """Write ``bundle`` (``make_tiny_bundle`` / ``make_s1_mini_bundle``'s
+    tuple) as a reference checkpoint directory: ``config.json``,
+    ``tokenizer.tiktoken``, ``special_tokens.json``, ``model.pth`` in
+    ``lm_dtype`` and ``codec.pth`` in float32 (``generator.`` keys, weight
+    norm in ``naming``), with ``vocoder_config.json`` only when the codec
+    is not the default one (the reference's directory has none).  Returns
+    the directory."""
+    cfg, params, tokenizer, vcfg, vparams = bundle
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2))
+    ranks = sorted(tokenizer._ranks.items(), key=lambda kv: kv[1])
+    (out / "tokenizer.tiktoken").write_text(
+        "".join(f"{base64.b64encode(t).decode()} {r}\n" for t, r in ranks))
+    (out / "special_tokens.json").write_text(json.dumps(list(tokenizer.all_special_tokens_with_ids)))
+    torch.save(to_reference_lm_state_dict(params, cfg, dtype=lm_dtype), out / "model.pth")
+    if vparams is not None:
+        torch.save(to_reference_codec_state_dict(vparams, vcfg, naming=naming), out / "codec.pth")
+        if vcfg != VocoderConfig():
+            vcfg.to_json(out / "vocoder_config.json")
+    return out

@@ -1,8 +1,9 @@
 """Audio I/O: WAV read and write, resampling, raw PCM and WAV headers.
 
 The port's copy of ``read_wav`` (with ``resample`` and ``_fft_resample``),
-``to_wav_bytes``, ``to_pcm_bytes``, ``wav_header`` and
-``streaming_wav_header`` from ``fish_tts_tpu/utils/audio.py``: 16-bit mono
+``to_wav_bytes``, ``to_pcm_bytes``, ``wav_header``,
+``streaming_wav_header``, ``transcode_to_wav`` and ``load_audio_bytes``
+from ``fish_tts_tpu/utils/audio.py``: 16-bit mono
 WAV, float32 in [-1, 1], resampled to 44.1 kHz on read.  Resampling is the
 Fourier method of ``scipy.signal.resample`` in numpy alone (the JAX
 package's fallback when scipy is absent), computed in float64.
@@ -11,8 +12,11 @@ package's fallback when scipy is absent), computed in float64.
 from __future__ import annotations
 
 import io
+import shutil
 import struct
+import subprocess
 import wave
+from pathlib import Path
 
 import numpy as np
 
@@ -101,3 +105,26 @@ def to_pcm_bytes(audio: np.ndarray) -> bytes:
     """float audio -> raw int16 PCM bytes (no clipping, as the JAX package)."""
     audio_int16 = (np.asarray(audio, dtype=np.float32) * 32767).astype(np.int16)
     return audio_int16.tobytes()
+
+
+def transcode_to_wav(path, sample_rate: int = DEFAULT_SAMPLE_RATE) -> bytes:
+    """Decode any audio file to mono 16-bit WAV bytes through ffmpeg.
+    Raises RuntimeError when ffmpeg is missing or fails, with its output."""
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError("ffmpeg is required to read non-WAV audio; install it or "
+                           "provide a .wav file")
+    cmd = ["ffmpeg", "-v", "error", "-i", str(path), "-ac", "1", "-ar", str(sample_rate),
+           "-sample_fmt", "s16", "-f", "wav", "pipe:1"]
+    proc = subprocess.run(cmd, capture_output=True)
+    if proc.returncode != 0:
+        detail = proc.stderr.decode(errors="replace").strip()
+        raise RuntimeError(f"ffmpeg could not decode {path}: {detail}")
+    return proc.stdout
+
+
+def load_audio_bytes(path, sample_rate: int = DEFAULT_SAMPLE_RATE) -> bytes:
+    """A ``.wav`` file's bytes as they are; any other file through ffmpeg."""
+    p = Path(path)
+    if p.suffix.lower() == ".wav":
+        return p.read_bytes()
+    return transcode_to_wav(p, sample_rate)

@@ -84,3 +84,10 @@ def quantize_lm_params(params: Params) -> Params:
     if "output" in params:
         out["output"] = quantize_weight(params["output"], axis=1)
     return out
+
+
+def quantized_bytes(params: Params) -> int:
+    """Bytes of every leaf of a (quantized or float) tree."""
+    from fish_tts_tpu_torch.utils.checkpoint import flatten_params
+
+    return sum(t.numel() * t.element_size() for t in flatten_params(params).values())

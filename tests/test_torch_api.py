@@ -119,8 +119,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "serving = {'engine.serve', 'serving.http', 'utils.text', 'synthesizer'}\n"
-        "assert {p.__name__ + '.' + m for m in serving} <= set(names), names\n"
+        "wanted = {'engine.serve', 'serving.http', 'utils.text', 'synthesizer', 'models.api',\n"
+        "          'scripts.convert_checkpoint', 'scripts.encode_reference',\n"
+        "          'scripts.example_synthesis', 'scripts.serve_http'}\n"
+        "assert {p.__name__ + '.' + m for m in wanted} <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fish_tts_tpu')]\n"
         "assert not bad, bad\n"
     )
