@@ -57,6 +57,16 @@ printing its own lines; any failure raises and the script exits non-zero:
    Then the port's A/B entry point of the dequant modes
    (``fish_tts_tpu_torch.scripts.ab_fast_decoder``, AB_ARGS) once, its
    lines printed and its launches checked (path "ab").
+   Then the tools phase (``phase_tools``): every measurement script of
+   ``fish_tts_tpu_torch/scripts`` once, in process, at S1-mini width with
+   short repeats (TOOLS), its weights freed before the next: the sampler
+   check (every line OK but at knife edges), the kernel-gate A/B (each row
+   the gated-off kernel at 0 launches and each other one per decode frame),
+   the KV-bucket A/B (both buckets run), the benchmark at int8 and at bf16
+   (a parseable report: three rows whose ``audio_s`` is their frames x 2048
+   / 44 100, a first chunk and a three-stream batch) and the five
+   profilers, the serving one also with ``--sync`` (every row finite and
+   positive); the three kernels launched (path "tools").
 4. graph: at S1-mini width (GRAPH_CASES: B = 1, and B = 4 with two streams
    already done; R = 256 of S = 512), GRAPH_FRAMES frames through the eager
    loop (``decode.decode_chunk``) and through the captured CUDA graph
@@ -178,7 +188,7 @@ those of the first int8 ``synthesize`` call, the head-less slow stack's
 those of the untied-head call, the "s8" variant's those of the A/B run,
 each read from counts set to 0 just before it; ``launches_by_path`` each
 path's launches summed over its checked runs, each run read from its own
-zeroed counts: ab (the A/B run), main (every ``synthesize`` call of phases
+zeroed counts: ab (the A/B run), tools (the measurement scripts), main (every ``synthesize`` call of phases
 5 and 6), convert (the two loaded instances' calls and the init_model
 engine's), stream, batch, serve (int8 and bf16), encode (the call with the
 encoded profile) and long) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -192,6 +202,7 @@ import argparse
 import dataclasses
 import io
 import json
+import math
 import statistics
 import struct
 import subprocess
@@ -987,6 +998,136 @@ def phase_ab() -> None:
         fail(f"ab: {len(records)} lines, kernel launches {launches}, want {want}")
     tally("ab", launches)
     print(f"ab: {len(records)} lines in {time.perf_counter() - t:.1f} s; kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+
+
+# The measurement scripts (``python -m fish_tts_tpu_torch.scripts.<name>``) the
+# tools phase runs, with their arguments: S1-mini widths, short repeats.
+TOOLS = (
+    ("verify_sampler", ()),
+    ("ab_kernel_gates", ("--chunks", "2")),
+    ("ab_kvbucket", ("--pos", "130", "--buckets", "512", "256", "--chunks", "2")),
+    ("benchmark", ("--random-s1", "--json", "--precision", "int8", "--max-tokens", "200")),
+    ("benchmark", ("--random-s1", "--json", "--precision", "bf16", "--max-tokens", "100")),
+    ("profile_decode", ("-n", "3")),
+    ("profile_batch", ("-b", "8", "--kernels", "-n", "3")),
+    ("profile_slow_parts", ("-n", "3")),
+    ("profile_vocoder", ("-n", "2")),
+    ("profile_serving", ("--slots", "8", "--requests", "16", "--budget", "100")),
+    ("profile_serving", ("--slots", "8", "--requests", "16", "--budget", "100", "--sync")),
+)
+GATE_KERNELS = {"sampler kernel OFF": "sample_slow", "fast-decoder kernel OFF": "fast_decode_frame",
+                "slow-stack kernel OFF": "slow_stack_step"}
+
+
+def check_gates(records, chunks: int) -> str:
+    """Each gate row: its gated-off kernel at 0 launches, every other kernel
+    once per decode frame the row ran ((1 warm + 3 x ``chunks``) x 20)."""
+    frames = (1 + 3 * chunks) * 20
+    if len(records) != 4:
+        fail(f"tools: ab_kernel_gates gave {len(records)} rows")
+    for rec in records:
+        off = GATE_KERNELS.get(rec["label"])
+        want = {name: 0 if name == off else frames for name in rec["launches"]}
+        if rec["launches"] != want or rec["frames"] != frames:
+            fail(f"tools: ab_kernel_gates {rec['label']!r}: launches {rec['launches']} over "
+                 f"{rec['frames']} frames, want {want}")
+        if not (math.isfinite(rec["ms_per_frame"]) and rec["ms_per_frame"] > 0):
+            fail(f"tools: ab_kernel_gates {rec['label']!r}: {rec['ms_per_frame']} ms/frame")
+    base = records[0]["ms_per_frame"]
+    return ", ".join(f"{r['label']} {r['ms_per_frame']:.3f} ms/frame "
+                     f"({r['ms_per_frame'] / base:.2f}x)" for r in records)
+
+
+def check_report(rep: dict, label: str) -> str:
+    """A benchmark report: three rows, each ``audio_s`` its frames x 2048 /
+    44 100 (rounded as written), a first chunk and a three-stream batch."""
+    rows = rep.get("rows", [])
+    if len(rows) != 3:
+        fail(f"tools: {label}: {len(rows)} rows")
+    for r in rows:
+        want = r["frames"] * 2048 / 44100
+        if r["frames"] <= 0 or abs(r["audio_s"] - want) > 6e-4 or not r["wall_s"] > 0:
+            fail(f"tools: {label} row {r['name']}: audio_s {r['audio_s']} for {r['frames']} "
+                 f"frames (want {want:.4f}), wall_s {r['wall_s']}")
+    st, b = rep.get("streaming", {}), rep.get("batch", {})
+    if not (st.get("ttfa_s", 0) > 0 and st.get("chunks", 0) > 0):
+        fail(f"tools: {label}: streaming {st}")
+    if b.get("streams") != 3 or not b.get("audio_s", 0) > 0:
+        fail(f"tools: {label}: batch {b}")
+    return (f"mean RTF {rep['mean_rtf']}, rows " +
+            ", ".join(f"{r['name']} {r['frames']} frames RTF {r['rtf']}" for r in rows) +
+            f"; TTFA {st['ttfa_s']} s; batch of 3 RTF {b['rtf']}; peak "
+            f"{rep['peak_memory_gb']} GB")
+
+
+def check_rows(name: str, records) -> None:
+    """Every measured row of a profiler finite and positive; a serving
+    phase's device span finite and not negative (a phase that enqueues
+    nothing spans ~0 ms of the stream)."""
+    for rec in records:
+        if rec.get("derived"):
+            continue  # a remainder computed from the other rows
+        values = [rec[k] for k in ("value", "host_s", "frames_per_s") if k in rec]
+        span = rec.get("device_ms_per_round")
+        if (not values or not all(math.isfinite(v) and v > 0 for v in values)
+                or (span is not None and not (math.isfinite(span) and span >= 0))):
+            fail(f"tools: {name} row {rec.get('label')!r}: {values}, device span {span}")
+
+
+def phase_tools() -> None:
+    """Every measurement script once (TOOLS), each through its ``main(argv)``
+    in this process, its lines printed, checked as the module docstring
+    says, its weights freed before the next; the launches of the whole
+    phase, read from counts set to 0 just before it, go to path "tools"."""
+    import contextlib
+    import gc
+    import importlib
+
+    import torch
+
+    zero_counts()
+    t_phase = time.perf_counter()
+    for name, argv in TOOLS:
+        mod = importlib.import_module(f"fish_tts_tpu_torch.scripts.{name}")
+        t = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            got = mod.main(list(argv))
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        note = ""
+        if name == "verify_sampler":
+            lines = [ln for ln in text.splitlines() if ln.startswith("B=")]
+            if got != 0 or len(lines) != 18 or not all(": OK" in ln for ln in lines):
+                fail(f"tools: verify_sampler returned {got} over {len(lines)} lines")
+            note = text.strip().splitlines()[-1]
+        elif name == "ab_kernel_gates":
+            note = check_gates(got, int(argv[argv.index("--chunks") + 1]))
+        elif name == "ab_kvbucket":
+            rest = argv[argv.index("--buckets") + 1:]
+            want = [int(b) for b in rest[:next((i for i, a in enumerate(rest)
+                                                 if a.startswith("-")), len(rest))]]
+            if [r["kv_bucket"] for r in got] != want:
+                fail(f"tools: ab_kvbucket ran {[r['kv_bucket'] for r in got]}, want {want}")
+            check_rows(name, [{"label": r["kv_bucket"], "value": r["ms_per_frame"]} for r in got])
+            note = ", ".join(f"kv {r['kv_bucket']}: {r['ms_per_frame']:.3f} ms/frame" for r in got)
+        elif name == "benchmark":
+            rep = json.loads(text.strip().splitlines()[-1])
+            note = check_report(rep, f"benchmark {argv[argv.index('--precision') + 1]}")
+        else:
+            check_rows(name, got)
+            note = f"{len(got)} rows"
+        print(f"tools: {name} {' '.join(argv)}: {note}; {time.perf_counter() - t:.1f} s",
+              flush=True)
+    launches = kernel_counts()
+    if not all(launches[k] > 0 for k in ("sample_slow", "slow_stack_step", "fast_decode_frame")):
+        fail(f"tools: kernel launches {launches}")
+    tally("tools", launches)
+    print(f"tools: {len(TOOLS)} runs in {time.perf_counter() - t_phase:.1f} s; kernel launches "
           f"{json.dumps(launches)}", flush=True)
 
 
@@ -3209,6 +3350,7 @@ def main() -> int:
 
     results = phase_kernels(dev)
     phase_ab()
+    phase_tools()
     phase_graph(dev)
     launches = phase_main(dev, args.profile)
     launches[HEADLESS] = phase_float(dev, args.profile)

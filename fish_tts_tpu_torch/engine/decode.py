@@ -596,7 +596,7 @@ class DecodeGraph:
                                   kv_bucket=kv_bucket, skip_done=skip_done, ring=self.ring,
                                   **options)
         saved = [t.clone() for t in _tensors(state)]
-        counts = _launch_counts()
+        counts = launch_counts()
         with torch.no_grad():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -604,10 +604,10 @@ class DecodeGraph:
                 frame()
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            before = _launch_counts()
+            before = launch_counts()
             with torch.cuda.graph(self.graph):
                 frame()
-            self._launches = [n - m for n, m in zip(_launch_counts(), before)]
+            self._launches = [n - m for n, m in zip(launch_counts(), before)]
             # the warm-up frame is undone and the capture only records its
             # launches: neither counts
             for (m, name), n in zip(_COUNTERS, counts):
@@ -628,7 +628,7 @@ class DecodeGraph:
             for _ in range(n):
                 self.graph.replay()
             graph_replays += n
-            _add_launches(k * n for k in self._launches)
+            add_launches(k * n for k in self._launches)
             frames.append(self.ring.frames[:, :n].clone())
             emitted.append(self.ring.emitted[:, :n].clone())
         if len(frames) == 1:
@@ -641,11 +641,13 @@ _COUNTERS = ((sampler_kernel, "launches"), (slow_stack, "launches"),
              (slow_stack, "headless_launches"), (fast_decoder, "launches"))
 
 
-def _launch_counts() -> list[int]:
+def launch_counts() -> list[int]:
+    """Every kernel counter of ``_COUNTERS``, in order."""
     return [getattr(m, name) for m, name in _COUNTERS]
 
 
-def _add_launches(deltas) -> None:
+def add_launches(deltas) -> None:
+    """Add a replay's launches (``launch_counts()`` order) to the counters."""
     for (m, name), k in zip(_COUNTERS, deltas):
         setattr(m, name, getattr(m, name) + k)
 

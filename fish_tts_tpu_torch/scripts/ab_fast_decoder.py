@@ -17,29 +17,16 @@ Usage: python -m fish_tts_tpu_torch.scripts.ab_fast_decoder [-b 1 8 16] [-n N]
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
 from fish_tts_tpu_torch.engine.decode import gumbel_from_uniform
-from fish_tts_tpu_torch.models.dual_ar import make_rope_tables
 from fish_tts_tpu_torch.ops import fast_decoder
-from fish_tts_tpu_torch.testing import make_s1_mini_bundle, make_tiny_bundle
-from fish_tts_tpu_torch.utils.checkpoint import to_device
-from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
+from fish_tts_tpu_torch.scripts._timing import device_line, lm, resolve_device, timed
 
 FRAMES = 20
 WINDOW = 16
 SAMPLING = (0.7, 0.8, 1.1)  # temperature, top_p, repetition penalty
-
-
-def _params(tiny: bool, dev: torch.device):
-    if tiny:
-        cfg, params, *_ = make_tiny_bundle(0)
-        params = to_device(params, dev)
-    else:
-        cfg, params, *_ = make_s1_mini_bundle(0, device=dev, with_vocoder=False)
-    return cfg, quantize_lm_params(params)
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -53,16 +40,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs a CUDA device")
-    cfg, params = _params(args.tiny, dev)
-    rope = make_rope_tables(cfg, device=dev)["fast"]
+    dev = resolve_device(args.device)
+    cfg, params, rope = lm(args.tiny, dev, int8=True)
+    rope = rope["fast"]
     modes = args.modes or list(fast_decoder.DEQUANT_MODES)
     K, Vr = cfg.num_codebooks, cfg.residual_codebook_size
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"# device={name} cfg={'tiny' if args.tiny else 's1'} frames/run={FRAMES}",
-          flush=True)
+    print(f"# device={device_line(dev)} cfg={'tiny' if args.tiny else 's1'} "
+          f"frames/run={FRAMES}", flush=True)
     gen = torch.Generator(device=dev)
     records = []
     for B in args.b:
@@ -84,19 +68,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
                 return a0
 
             run()  # warm-up
-            if dev.type == "cuda":
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
+
+            def runs(run=run):
                 for _ in range(args.n):
                     run()
-                end.record()
-                end.synchronize()
-                dt = start.elapsed_time(end) / 1e3 / (args.n * FRAMES)
-            else:
-                t0 = time.perf_counter()
-                for _ in range(args.n):
-                    run()
-                dt = (time.perf_counter() - t0) / (args.n * FRAMES)
+
+            dt = timed(runs, dev)[0] / (args.n * FRAMES)
             rec = {"B": B, "dequant": mode, "ms_per_frame": dt * 1e3,
                    "frames_per_s": 1 / dt, "aggregate_frames_per_s": B / dt}
             records.append(rec)

@@ -121,7 +121,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "wanted = {'engine.serve', 'serving.http', 'utils.text', 'synthesizer', 'models.api',\n"
         "          'scripts.convert_checkpoint', 'scripts.encode_reference',\n"
-        "          'scripts.example_synthesis', 'scripts.serve_http'}\n"
+        "          'scripts.example_synthesis', 'scripts.serve_http', 'scripts._timing',\n"
+        "          'scripts.benchmark', 'scripts.verify_sampler', 'scripts.ab_kernel_gates',\n"
+        "          'scripts.ab_kvbucket', 'scripts.profile_decode', 'scripts.profile_batch',\n"
+        "          'scripts.profile_slow_parts', 'scripts.profile_vocoder',\n"
+        "          'scripts.profile_serving'}\n"
         "assert {p.__name__ + '.' + m for m in wanted} <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fish_tts_tpu')]\n"
         "assert not bad, bad\n"
