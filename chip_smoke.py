@@ -182,6 +182,29 @@ printing its own lines; any failure raises and the script exits non-zero:
    661-frame profile stored, only chunk 1 through the prefix, forked once;
    time to first audio beside ``synthesize_stream``'s.
 
+11. mesh (at the end of phase 5's int8 instance's phases, before phase 6):
+   a mesh on the one card, two handles to cuda:0, which exercises the
+   sharding and the reductions, not copies between cards.
+   ``EngineConfig(tp_size=2)`` at bf16 and int8 against the one-device
+   plain route (``fast_kernel=False``): the prompt's prefill hidden state
+   and logits within STACK_TOL of the plain version's largest, and
+   MESH_FRAMES frames of ``synthesize`` from one seed whose codes equal the
+   plain run's up to a first difference at a knife edge of its own numbers
+   (``hold_to_plain``: the mesh run's decisions recorded under
+   ``DecisionLog``, the plain run's first frames repeated on the eager loop
+   under another).  ``EngineConfig(dp_size=2)`` at int8:
+   ``synthesize_batch`` of MESH_TEXTS for MESH_DP_FRAMES frames (one prompt
+   group, one stream per dp row, each row's draws keyed as its text's solo
+   run), each stream held
+   the same way against its solo B = 1 plain run.  No kernel launches
+   there (path "mesh", all five rows 0).  Then ``serve(slots=8)`` on the
+   int8 instance with the pool codec on the LM's stream
+   (``vocoder_device=None``) and on a stream of its own
+   (``vocoder_device=cuda:0``), MESH_SERVE requests each: every request's
+   PCM byte-equal between the two; per round the host wall time and the
+   device time of the LM stream and of the codec (CUDA events on each
+   stream), the aggregate frames/s (path "vocoder_device").
+
 Then the whole run's wall time, one JSON line of per-kernel records
 (main-path shapes, B = 1; the sampler on bf16-rounded logits; ``launches``
 those of the first int8 ``synthesize`` call, the head-less slow stack's
@@ -191,7 +214,8 @@ path's launches summed over its checked runs, each run read from its own
 zeroed counts: ab (the A/B run), tools (the measurement scripts), main (every ``synthesize`` call of phases
 5 and 6), convert (the two loaded instances' calls and the init_model
 engine's), stream, batch, serve (int8 and bf16), encode (the call with the
-encoded profile) and long) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+encoded profile), long, mesh (the mesh and plain runs of phase 11, all 0)
+and vocoder_device (its two serving runs)) and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside this file, it exits non-zero and
 prints no result.
 """
@@ -199,6 +223,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import json
@@ -1465,6 +1490,7 @@ def phase_main(dev, profile_dir=None):
     profile = phase_encode(tts, seen, first_wav)
     phase_http(tts, first_wav, profile)
     phase_long(tts)
+    phase_mesh(tts, bundle)
     return launches
 
 
@@ -3308,6 +3334,300 @@ def phase_http(tts, voice_wav: bytes, profile) -> None:
           f"PUT /voices/smoke registered a {frames}-frame voice in {put_s:.2f} s, GET /voices "
           f"lists it, /synthesize with it {len(voiced_pcm)} bytes equal to a ServeSession's; "
           f"driver and server stopped; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# --- phase 11: the (dp, tp) mesh and the serving codec's own stream ------------------
+
+
+MESH_FRAMES = 60  # max_tokens of each tp = 2 synthesize
+MESH_DP_FRAMES = 30  # max_tokens of the dp = 2 batch
+# two texts of one prompt bucket: the batch prefills them as one group, whose
+# rows the DP check keys as each text's solo run
+MESH_TEXTS = (SHORT_TEXT, "Fine, thank you, and how are you doing?")
+MESH_SERVE = 8  # requests of phase_serve's first two waves, submitted at once into 8 slots
+
+
+def wav_samples(wav: bytes) -> int:
+    with wave.open(io.BytesIO(wav)) as w:
+        return w.getnframes()
+
+
+def mesh_instance(bundle, precision: str, **ecfg):
+    """A FishTTS at S1-mini width on ``EngineConfig(**ecfg)``: a mesh of two
+    handles to the one card when ecfg asks for one, no warmup, seed SEED."""
+    import torch
+
+    from fish_tts_tpu_torch import FishTTS
+    from fish_tts_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(**ecfg)
+    devices = [torch.device("cuda", 0)] * 2 if cfg.tp_size * cfg.dp_size > 1 else None
+    return FishTTS(device="cuda", precision=precision, warmup=False, seed=SEED,
+                   engine_config=cfg, devices=devices, _testing_bundle=bundle)
+
+
+def mesh_prefill(mesh_tts, plain_tts, label: str) -> str:
+    """The prompt's prefill (``slow_forward`` + ``lm_logits``) on the mesh
+    instance against the one-device plain one: hidden state and last logits
+    within STACK_TOL of the plain version's largest magnitude."""
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.models import dual_ar
+    from fish_tts_tpu_torch.models.prompt import build_prompt
+    from fish_tts_tpu_torch.ops.attention import NEG_INF
+
+    cfg = plain_tts._cfg
+    padded, T = plain_tts.engine._pad_prompt(
+        build_prompt(plain_tts.engine.tokenizer, TEXT, cfg.num_codebooks).values)
+    out = []
+    for e in (mesh_tts.engine, plain_tts.engine):
+        t = torch.arange(padded.shape[-1], device=e.device)
+        block = torch.where(t[None, :] <= t[:, None], 0.0, NEG_INF)[None, None]
+        state = decode.init_state(e.params, cfg, batch=1)
+        with torch.no_grad():
+            hidden = dual_ar.slow_forward(e.params, cfg, e.ids, e.rope,
+                                          torch.as_tensor(padded, device=e.device), t[None],
+                                          state["kv"], None, block, read_len=0)
+            out.append((hidden[:, :T], dual_ar.lm_logits(e.params, cfg, hidden[:, T - 1:T])))
+    (hm, lm), (h1, l1) = out
+    h_rel, l_rel = rel_err(hm, h1)[1], rel_err(lm, l1)[1]
+    if not (h_rel <= STACK_TOL and l_rel <= STACK_TOL):
+        fail(f"{label}: prefill hidden {h_rel:.3g} and logits {l_rel:.3g} of the largest, "
+             f"limit {STACK_TOL}")
+    return f"prefill of {T} tokens: hidden {h_rel:.3g}, logits {l_rel:.3g} of the largest"
+
+
+def hold_to_plain(mesh_log, key: int, got, ref, rerun, label: str) -> int | None:
+    """``got`` (a mesh run's codes, its decisions recorded in ``mesh_log``)
+    against ``ref`` (the one-device plain run's, on its graphs): equal, or
+    equal up to a first differing frame f at a knife edge of the plain run's
+    own numbers (:func:`knife_edge`): the plain run is repeated for its
+    first f + 2 frames on the eager loop with every decision recorded
+    (``rerun(n)`` gives the codes of an n-frame run; the frames do not
+    depend on the budget).  Returns the frame of the first differing
+    decision, None when the codes are equal."""
+    import numpy as np
+
+    if np.array_equal(got, ref):
+        return None
+    n = min(got.shape[1], ref.shape[1])
+    cols = np.flatnonzero((got[:, :n] != ref[:, :n]).any(axis=0))
+    if not len(cols):
+        fail(f"{label}: {got.shape[1]} frames against the plain run's {ref.shape[1]}")
+    f = int(cols[0])
+    log = DecisionLog()
+    with log.recording():
+        again = rerun(f + 2)
+    if not np.array_equal(again, ref[:, :f + 1]):
+        fail(f"{label}: the eager loop does not repeat the plain run's first {f + 1} frames")
+    return knife_edge(mesh_log, log, key, got[:, :f + 1], again, label)
+
+
+def mesh_tp(bundle, precision: str, card: str):
+    """``EngineConfig(tp_size=2)`` over two handles to the card against the
+    one-device plain route (``fast_kernel=False``): the prefill within
+    STACK_TOL; MESH_FRAMES frames of ``synthesize`` from one seed, the mesh
+    run's decisions recorded, codes equal up to a first difference at a
+    knife edge (:func:`hold_to_plain`), the WAV of every frame.  Returns the
+    plain instance."""
+    import torch
+
+    label = f"mesh: tp=2 {precision}"
+    mesh, plain = mesh_instance(bundle, precision, tp_size=2), mesh_instance(
+        bundle, precision, fast_kernel=False)
+    if mesh.engine.mesh.shape != {"dp": 1, "tp": 2} or mesh.engine._options["fast_kernel"]:
+        fail(f"{label}: mesh {mesh.engine.mesh}, options {mesh.engine._options}")
+    note = mesh_prefill(mesh, plain, label)
+    seen = {id(t): observe(t) for t in (mesh, plain)}
+
+    def synth(tts, n):
+        tts.engine.reseed(SEED)
+        wav = tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
+                             repetition_penalty=SAMPLING[2], max_tokens=n)
+        codes = seen[id(tts)]["codes"]
+        if wav_samples(wav) != codes.shape[1] * tts._vocoder_cfg.frame_length:
+            fail(f"{label}: {wav_samples(wav)} samples for {codes.shape[1]} frames")
+        return codes
+
+    def rerun(n):
+        with mock.patch.object(plain.engine, "_decode", eager_route(plain.engine)):
+            return synth(plain, n)
+
+    log, walls = DecisionLog(), []
+    for tts in (mesh, plain):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with log.recording() if tts is mesh else contextlib.nullcontext():
+            codes = synth(tts, MESH_FRAMES)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t, codes))
+    (wall_m, got), (wall_p, ref) = walls
+    key = mesh.engine._seed_noise(SEED).slot_keys([0])[0]
+    f = hold_to_plain(log, key, got, ref, rerun, label)
+    eq = ("codes equal" if f is None else
+          f"codes equal up to frame {f}, a knife edge of the plain run's numbers")
+    print(f"{label}: {note}; {got.shape[1]} frames, {eq}; synthesize {wall_m:.2f} s on the "
+          f"mesh's eager loop with its decisions recorded, {wall_p:.2f} s on the one-device "
+          f"plain route's graphs ({card})", flush=True)
+    return plain
+
+
+def mesh_dp(bundle, plain, card: str) -> None:
+    """``EngineConfig(dp_size=2)`` over two handles to the card:
+    ``synthesize_batch`` of MESH_TEXTS (one prompt group, one stream per dp
+    row) for MESH_DP_FRAMES frames, every draw of row b keyed as text b's
+    solo run, its decisions recorded; each stream against its solo B = 1 run
+    on the one-device plain int8 instance, equal up to a first difference at
+    a knife edge (:func:`hold_to_plain`)."""
+    import numpy as np
+    import torch
+
+    from fish_tts_tpu_torch.engine.decode import GumbelNoise, KeyedNoise
+
+    label = "mesh: dp=2 int8"
+    tts = mesh_instance(bundle, "int8", dp_size=2)
+    engine = tts.engine
+    if engine.mesh.shape != {"dp": 2, "tp": 1} or prompt_groups(engine, MESH_TEXTS) != 1:
+        fail(f"{label}: mesh {engine.mesh}, {prompt_groups(engine, MESH_TEXTS)} prompt groups")
+    keys = [GumbelNoise(SEED + 10 + b, None).slot_keys([0])[0] for b in range(2)]
+    kw = dict(zip(("temperature", "top_p", "repetition_penalty"), SAMPLING))
+    seen = {}
+    gen_batch = engine.generate_batch
+
+    def rec(*a, **k):
+        seen["codes"] = out = gen_batch(*a, **k)
+        return out
+
+    log = DecisionLog()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with log.recording(), mock.patch.object(engine, "_next_noise", lambda: KeyedNoise(keys)), \
+            mock.patch.object(engine, "generate_batch", rec):
+        wavs = tts.synthesize_batch(list(MESH_TEXTS), max_tokens=MESH_DP_FRAMES, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = seen["codes"]
+    for w, c in zip(wavs, got):
+        if wav_samples(w) != c.shape[1] * tts._vocoder_cfg.frame_length:
+            fail(f"{label}: {wav_samples(w)} samples for {c.shape[1]} frames")
+
+    def solo(b, n, eager=False):
+        with (mock.patch.object(plain.engine, "_decode", eager_route(plain.engine)) if eager
+              else contextlib.nullcontext()):
+            return np.concatenate([r.codes for r in plain.engine.generate_long(
+                MESH_TEXTS[b], max_new_tokens=n, noise=KeyedNoise([keys[b]]), **kw)
+                if r.action == "sample"], axis=1)
+
+    notes = []
+    for b in range(2):
+        f = hold_to_plain(log, keys[b], got[b], solo(b, MESH_DP_FRAMES),
+                          lambda n, b=b: solo(b, n, eager=True), f"{label}: stream {b}")
+        notes.append(f"stream {b}: {got[b].shape[1]} frames, " + (
+            "equal to its solo run" if f is None else f"equal up to frame {f}, a knife edge"))
+    print(f"{label}: synthesize_batch of 2 in {wall:.2f} s on the mesh's eager loop with its "
+          f"decisions recorded ({card}), one stream per dp row; {'; '.join(notes)}", flush=True)
+
+
+def serve_codec_stream(tts, card: str, device) -> None:
+    """``tts.serve(slots=8)`` with the pool codec on the LM's stream
+    (``vocoder_device=None``) and on a stream of its own on ``device``
+    (the card, cuda:0): the same MESH_SERVE requests, submitted at
+    once; every request's PCM byte-equal between the two; per round the
+    host wall time, the LM stream's device time (CUDA events on the pool's
+    stream around its step) and the pool codec's (CUDA events on the
+    codec's stream around its decode), medians; the kernels launched, every
+    decode frame a graph replay (path "vocoder_device")."""
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+
+    reqs = serve_requests(16, SERVE_BUDGETS, reference_profile(tts._cfg))[:MESH_SERVE]
+    pcm, lines = [], []
+    for name, vdev in (("None", None), (str(device), device)):
+        sess = tts.serve(slots=8, vocoder_device=vdev, warmup=True)
+        srv, lm_ev, voc_ev, walls = sess._srv, [], [], []
+        lm_step, codec = srv.step, sess._decode
+
+        def timed_lm(lm_step=lm_step, srv=srv):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record(srv._stream)
+            events = lm_step()
+            b.record(srv._stream)
+            lm_ev.append((a, b))
+            return events
+
+        def timed_codec(*args, codec=codec):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = codec(*args)
+            b.record()
+            voc_ev.append((a, b))
+            return out
+
+        srv.step, sess._decode = timed_lm, timed_codec
+        zero_counts()
+        ids = [sess.submit(text, **kw) for text, kw in reqs]
+        out = {i: [] for i in ids}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while sess.busy:
+            t = time.perf_counter()
+            for ev in sess.step():
+                out[ev.request_id].append(ev.pcm)
+            walls.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        if (not all(launches[k] for k in ("sample_slow", "slow_stack_step", "fast_decode_frame"))
+                or decode.eager_frames or not decode.graph_replays):
+            fail(f"serve vocoder_device={name}: launches {launches}, {decode.graph_replays} "
+                 f"graph replays, {decode.eager_frames} eager frames")
+        tally("vocoder_device", launches)
+        pcm.append([b"".join(out[i]) for i in ids])
+        frames = sum(len(p) for p in pcm[-1]) // (2 * tts._vocoder_cfg.frame_length)
+        ms = [statistics.median(a.elapsed_time(b) for a, b in evs) for evs in (lm_ev, voc_ev)]
+        lines.append(f"vocoder_device={name}: {len(walls)} rounds, {frames} frames in {wall:.3f} s "
+                     f"= {frames / wall:.1f} aggregate frames/s; per round (median) host wall "
+                     f"{statistics.median(walls) * 1e3:.2f} ms, LM stream device {ms[0]:.2f} ms, "
+                     f"pool codec device {ms[1]:.2f} ms")
+        srv.step, sess._decode = lm_step, codec
+    same = sum(a == b for a, b in zip(*pcm))
+    if same != len(reqs) or not all(pcm[0]):
+        fail(f"mesh: serve: {same} of {len(reqs)} requests' PCM equal between the codec "
+             f"on the LM's stream and on its own")
+    for line in lines:
+        print(f"mesh: serve int8 slots=8, {len(reqs)} requests, {line} ({card})", flush=True)
+    print(f"mesh: serve: every request's PCM byte-equal with the codec on its own stream "
+          f"({same} of {len(reqs)}); launches {json.dumps(PATH_LAUNCHES['vocoder_device'])}",
+          flush=True)
+
+
+def phase_mesh(tts, bundle) -> None:
+    """The (dp, tp) mesh on the one card (:func:`mesh_tp` at bf16 and int8,
+    :func:`mesh_dp`), with no kernel launched (path "mesh", all five rows
+    0), then the serving codec on its own stream (:func:`serve_codec_stream`
+    on the int8 instance of phase 5)."""
+    import torch
+
+    card = card_line()
+    print(f"mesh: a mesh on one card ({card}) exercises the sharding and the reductions, not "
+          f"copies between cards: tp=2 and dp=2 over [cuda:0, cuda:0]", flush=True)
+    t_phase = time.perf_counter()
+    zero_counts()
+    mesh_tp(bundle, "bf16", card)
+    plain = mesh_tp(bundle, "int8", card)
+    mesh_dp(bundle, plain, card)
+    del plain
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    tally("mesh", launches)
+    if any(launches.values()):
+        fail(f"mesh: kernel launches {launches} on the mesh and plain runs")
+    print(f"mesh: kernel launches {json.dumps(launches)}: none on the mesh path", flush=True)
+    torch.cuda.empty_cache()
+    serve_codec_stream(tts, card, torch.device("cuda", 0))
+    print(f"mesh: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:

@@ -4,9 +4,7 @@ The port's own copy of ``fish_tts_tpu/config.py``: the same frozen
 dataclasses, field names and defaults, so a ``config.json`` or
 ``vocoder_config.json`` written for one package loads in the other.
 
-``EngineConfig`` keeps every field.  The port runs one device, so
-``tp_size`` and ``dp_size`` raise when set to anything but 1 instead of
-being silently ignored.
+``EngineConfig`` keeps every field, ``tp_size`` and ``dp_size`` included.
 """
 
 from __future__ import annotations
@@ -232,14 +230,6 @@ class VocoderConfig:
         return VocoderConfig(**kw)
 
 
-# EngineConfig fields whose code path the port does not have yet, with the
-# only value it accepts.
-_UNPORTED_ENGINE_FIELDS = {
-    "tp_size": 1,            # multi-device sharding (ROADMAP.md §1, "Multi-device")
-    "dp_size": 1,
-}
-
-
 @dataclass(frozen=True)
 class EngineConfig:
     """Generation-engine knobs.
@@ -255,8 +245,12 @@ class EngineConfig:
       ``approx_top_k`` asks for an approximate search, which the port runs
       exactly (``engine/sampling.py``).
     - ``fast_kernel``: False keeps every frame on the plain PyTorch route.
-    - ``tp_size`` / ``dp_size`` exist for ``config.json`` compatibility; only
-      1 runs in the port (see ``_UNPORTED_ENGINE_FIELDS``).
+    - ``tp_size`` / ``dp_size``: with a product above 1 the engine runs on
+      a (dp, tp) device mesh (``parallel/mesh.py``): each weight split over
+      ``tp_size`` ranks Megatron-style (``parallel/sharding.py``), the batch
+      over ``dp_size`` rows, each row a replica.  On a mesh every kernel is
+      off, caches are allocated at the full context and decode runs
+      eagerly.
     """
 
     prompt_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
@@ -272,13 +266,9 @@ class EngineConfig:
     dp_size: int = 1
 
     def __post_init__(self):
-        for name, only in _UNPORTED_ENGINE_FIELDS.items():
-            value = getattr(self, name)
-            if value != only:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={value!r}: the PyTorch port runs "
-                    f"only {name}={only!r} so far"
-                )
+        if self.tp_size < 1 or self.dp_size < 1:
+            raise ValueError(f"tp_size={self.tp_size} and dp_size={self.dp_size} must be "
+                             "at least 1")
 
 
 S1_MINI_CONFIG = DualARConfig(

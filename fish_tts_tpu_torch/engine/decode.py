@@ -30,8 +30,11 @@ alone, so the CPU takes the route the card takes):
   with ``sampling.sample`` at ``res_k = min(256, Vr)`` candidates when
   ``top_k > 0``.
 
-``fast_kernel=False`` puts every part on plain PyTorch.  A kernel that
-fails raises; only a gate that refuses leads to a plain route.
+``fast_kernel=False`` puts every part on plain PyTorch, and so do
+parameters on a (dp, tp) mesh (``parallel.sharding.MeshParams``): the
+kernels are single-device, as the JAX package's are, and the mesh route of
+``models/dual_ar.py`` is the plain one.  A kernel that fails raises; only a
+gate that refuses leads to a plain route.
 
 All-done skip, as the reference's per-frame ``lax.cond``: with ``B > 1`` or
 ``early_exit`` each frame computes ``skip = done.all()`` on the device; the
@@ -58,7 +61,8 @@ steps back.  The prefill frame uses step :data:`PREFILL_STEP`, which no
 decode step reaches.
 
 State is a dict of device tensors, all updated in place (a captured graph
-holds their addresses): ``kv`` {"k", "v"} (L, B, Hkv, S, Dh), ``frame``
+holds their addresses): ``kv`` {"k", "v"} (L, B, Hkv, S, Dh) (on a mesh,
+``ShardedKV``s; every other field on the mesh's first device), ``frame``
 (B, 1+K), ``pos`` (B,) int32, ``prev`` (B, 1+K, W) penalty window, ``step``
 (B,) int32, ``done`` (B,) bool, ``sampling`` (3, B, 1) f32 (temperature,
 top-p and penalty columns) and ``noise_key`` (B,) int64 (the default
@@ -79,6 +83,7 @@ from fish_tts_tpu_torch.models import dual_ar
 from fish_tts_tpu_torch.models.dual_ar import Params, TokenIds
 from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 from fish_tts_tpu_torch.ops.attention import NEG_INF
+from fish_tts_tpu_torch.parallel.sharding import MeshParams, mesh_of
 from fish_tts_tpu_torch.utils.quantize import qgather
 
 WINDOW = 16  # default repetition-penalty window
@@ -132,7 +137,9 @@ class Route:
 def route(cfg: DualARConfig, params: Params, batch: int, window: int, *, top_k: int = -1,
           approx: bool = False, fast_kernel: bool = True) -> Route:
     """The reference's per-call gates: each part of the frame on its kernel
-    when ``fast_kernel`` is set and the kernel's ``supports`` takes it."""
+    when ``fast_kernel`` is set and the kernel's ``supports`` takes it (never
+    for parameters on a mesh)."""
+    fast_kernel = fast_kernel and not isinstance(params, MeshParams)
     return Route(
         slow_stack=fast_kernel and slow_stack.supports(cfg, params, batch),
         sampler=fast_kernel and sampler_kernel.supports(batch, top_k),
@@ -238,12 +245,13 @@ def _draw(cfg: DualARConfig, state: State, noise: HostNoise | None, step: torch.
 def init_state(params: Params, cfg: DualARConfig, batch: int,
                max_seq_len: int | None = None, window: int = WINDOW) -> State:
     """Fresh decode state on the parameters' device: zero KV cache in the
-    parameters' dtype, zero penalty window, step 0."""
+    parameters' dtype (sharded on their mesh), zero penalty window, step 0."""
     norm = params["norm"]
     dev = norm.device
     K1 = 1 + cfg.num_codebooks
     return {
-        "kv": dual_ar.init_kv_cache(cfg, batch, max_seq_len, norm.dtype, device=dev),
+        "kv": dual_ar.init_kv_cache(cfg, batch, max_seq_len, norm.dtype, device=dev,
+                                    mesh=mesh_of(params)),
         "frame": torch.zeros((batch, K1), dtype=torch.int32, device=dev),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
         "prev": torch.zeros((batch, K1, window), dtype=torch.int32, device=dev),

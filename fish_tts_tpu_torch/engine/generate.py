@@ -32,7 +32,17 @@ captured on that state, one per (batch, cache rows, read rows, window,
 dtype, skip, route); on the CPU the same frame runs eagerly.  The route
 follows ``EngineConfig.sample_top_k``, ``approx_top_k`` and ``fast_kernel``
 through the reference's per-call gates (``decode.route``); the engine logs
-once when an option turns a kernel off.  ``metrics`` times
+once when an option turns a kernel off.
+
+``EngineConfig(tp_size, dp_size)`` with a product above 1 puts the engine
+on a (dp, tp) mesh (``parallel/mesh.py``) over ``devices`` (default: every
+visible card; on the CPU, tp * dp handles to the CPU): the parameters are
+sharded once (``parallel.sharding.shard_params``), the states' caches over
+(dp rows of the batch, tp KV heads), and the mesh route of
+``models/dual_ar.py`` runs.  As in the JAX package, no kernel runs on a
+mesh and every cache is allocated at the full context, never resized; decode
+runs the eager loop (a frame spans devices, so no graph is captured).
+``metrics`` times
 the host-visible fetch of each chunk ("prefill" for the first, "decode"
 after) and counts the tokens, as the JAX engine does.
 """
@@ -53,6 +63,8 @@ from fish_tts_tpu_torch.engine import decode as decode_mod
 from fish_tts_tpu_torch.models.dual_ar import Params, TokenIds, make_rope_tables
 from fish_tts_tpu_torch.models.prompt import ContentSequence, TextPart, VQPart, build_prompt
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
+from fish_tts_tpu_torch.parallel import sharding
+from fish_tts_tpu_torch.parallel.mesh import make_mesh
 from fish_tts_tpu_torch.utils.profiling import Metrics
 
 logger = logging.getLogger(__name__)
@@ -139,7 +151,7 @@ def _per_stream(x, B: int, name: str, ok) -> np.ndarray:
 def _rows(state: decode_mod.State, a: int, b: int) -> decode_mod.State:
     """Views of the rows [a, b) of every tensor of ``state``: writes through
     them land in the state's own memory."""
-    return {k: ({kk: vv[:, a:b] for kk, vv in v.items()} if k == "kv"
+    return {k: ({kk: vv.narrow(1, a, b - a) for kk, vv in v.items()} if k == "kv"
                 else v[:, a:b] if k == "sampling" else v[a:b])
             for k, v in state.items()}
 
@@ -150,14 +162,27 @@ def _kernels_off(on: decode_mod.Route, chosen: decode_mod.Route) -> list[str]:
 
 
 class GenerationEngine:
-    """Runs prefill and chunked decode from the host on the parameters' device."""
+    """Runs prefill and chunked decode from the host on the parameters'
+    device, or on a (dp, tp) mesh over ``devices`` (see the module
+    docstring)."""
 
     def __init__(self, params: Params, cfg: DualARConfig, tokenizer: FishTokenizer,
-                 engine_cfg: EngineConfig | None = None, seed: int = 0):
-        self.params = params
+                 engine_cfg: EngineConfig | None = None, seed: int = 0,
+                 devices: list | None = None):
         self.cfg = cfg
         self.tokenizer = tokenizer
-        self.engine_cfg = engine_cfg or EngineConfig()
+        self.engine_cfg = ecfg = engine_cfg or EngineConfig()
+        self.mesh = None
+        if ecfg.tp_size * ecfg.dp_size > 1:
+            if devices is None and params["norm"].device.type == "cpu":
+                devices = [params["norm"].device] * (ecfg.tp_size * ecfg.dp_size)
+            self.mesh = make_mesh(tp=ecfg.tp_size, dp=ecfg.dp_size, devices=devices)
+            params = sharding.shard_params(params, cfg, self.mesh)
+            logger.info("LM sharded over mesh(dp=%d, tp=%d): the kernels are off, decode "
+                        "runs the eager loop", ecfg.dp_size, ecfg.tp_size)
+        elif devices is not None:
+            raise ValueError("devices= needs EngineConfig(tp_size * dp_size > 1)")
+        self.params = params
         self.device = params["norm"].device
         self.ids = TokenIds(
             semantic_begin=tokenizer.semantic_begin_id,
@@ -165,9 +190,11 @@ class GenerationEngine:
             im_end=tokenizer.im_end_id,
         )
         self.rope = make_rope_tables(cfg, device=self.device)
-        ecfg = self.engine_cfg
+        if self.mesh is not None:
+            self.rope = sharding.shard_rope(self.rope, self.mesh)
+        # the kernels are single-device programs: a mesh turns them off
         self._options = dict(top_k=ecfg.sample_top_k, approx=ecfg.approx_top_k,
-                             fast_kernel=ecfg.fast_kernel)
+                             fast_kernel=ecfg.fast_kernel and self.mesh is None)
         window = ecfg.rep_penalty_window
         kernels_on = decode_mod.route(cfg, params, 1, window)
         chosen = decode_mod.route(cfg, params, 1, window, **self._options)
@@ -281,7 +308,7 @@ class GenerationEngine:
         broadcast over the batch."""
         n = min(src["k"].shape[3], dst["k"].shape[3])
         for k in ("k", "v"):
-            dst[k][:, :, :, :n].copy_(src[k][:, :, :, :n])
+            dst[k].narrow(3, 0, n).copy_(src[k].narrow(3, 0, n))
 
     def _encode_suffix(self, text: str):
         """Encode only the target-text block, the part of the reference
@@ -293,6 +320,14 @@ class GenerationEngine:
     @property
     def _large_chunk(self) -> int:
         return max(self.engine_cfg.batch_chunk, self.engine_cfg.decode_chunk)
+
+    def _alloc_rows(self, n: int) -> int:
+        """The cache allocation for a worst-case extent of ``n`` rows: its
+        power-of-two bucket, or the full context on a mesh, whose caches are
+        never resized (JAX ``generate.py:287-300``)."""
+        if self.mesh is not None:
+            return self.cfg.max_seq_len
+        return _cache_bucket(n, self.cfg.max_seq_len)
 
     def _fresh_state(self, batch: int, alloc: int) -> decode_mod.State:
         """The persistent state of (batch, alloc), reset in place."""
@@ -307,8 +342,9 @@ class GenerationEngine:
     def _decode(self, state: decode_mod.State, noise, sampling, num_frames: int,
                 kv_bucket: int, early_exit: bool):
         """``num_frames`` decode frames: graph replays on the card, the
-        eager loop on the CPU.  Returns (frames, emitted) on the device."""
-        if self.device.type != "cuda":
+        eager loop on the CPU and on a mesh.  Returns (frames, emitted) on
+        the device."""
+        if self.device.type != "cuda" or self.mesh is not None:
             _, frames, emitted = decode_mod.decode_chunk(
                 self.params, self.rope, state, noise, *sampling, cfg=self.cfg, ids=self.ids,
                 num_frames=num_frames, kv_bucket=kv_bucket, early_exit=early_exit,
@@ -398,8 +434,8 @@ class GenerationEngine:
         padded, T = self._pad_prompt(enc.values)
         # the worst-case decode extent, and never below the padded prefill's
         # write extent
-        alloc = _cache_bucket(max(prompt_len + max_new + 2 * self._large_chunk,
-                                  prefix_len + padded.shape[-1] + 1), max_length)
+        alloc = self._alloc_rows(max(prompt_len + max_new + 2 * self._large_chunk,
+                                     prefix_len + padded.shape[-1] + 1))
         state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
                  else self._fresh_state(1, alloc))
         sampling = (temperature, top_p, repetition_penalty)
@@ -606,8 +642,8 @@ class GenerationEngine:
         groups = self._bucket_groups(lengths)
         order = [i for _, idxs in groups for i in idxs]  # grouped row -> caller index
         # the worst-case decode extent, never below a group's padded prefill
-        alloc = _cache_bucket(max(max_len + max_new + 2 * self._large_chunk,
-                                  prefix_len + groups[-1][0] + 1), cfg.max_seq_len)
+        alloc = self._alloc_rows(max(max_len + max_new + 2 * self._large_chunk,
+                                     prefix_len + groups[-1][0] + 1))
         state = (self._fork_prefix(prefix, alloc, batch=B) if use_cached_prefix
                  else self._fresh_state(B, alloc))
         kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0

@@ -43,6 +43,9 @@ On the CPU each chunk runs the eager loop; a request may then carry a host
 noise source of its own (``prepare(noise=)``), called as ``noise(0, step,
 draws)`` for the slot it holds, as in its solo run.  On the card every
 decode frame is a graph replay and the noise is the counter-based default.
+On an engine's (dp, tp) mesh the pool's caches are sharded like the
+engine's, allocated at the full context and never resized, admission
+installs into the sharded cache, and each chunk runs the eager loop.
 
 Events are streaming-semantics (each emitted frame, the EOS frame
 included); callers that want batch semantics drop the final frame.
@@ -182,12 +185,17 @@ class ContinuousBatcher:
         return state
 
     def _pool_floor(self) -> int:
-        return _cache_bucket(1, self.engine.cfg.max_seq_len)
+        """The first allocation: the smallest bucket, or the full context on
+        a mesh, where the pool is never resized."""
+        return self.engine._alloc_rows(1)
 
     def _pool_resize(self, min_rows: int, grow_only: bool = False) -> None:
         """Move the pool to the allocation bucket of ``min_rows`` (every live
         slot's rows must sit below it).  Admission passes ``grow_only``: its
-        bound covers only the incoming prompts."""
+        bound covers only the incoming prompts.  A no-op on a mesh (JAX
+        ``serve.py:263-277``)."""
+        if self.engine.mesh is not None:
+            return
         alloc = _cache_bucket(min_rows, self.engine.cfg.max_seq_len)
         cur = self._alloc
         if alloc > cur or (alloc < cur and not grow_only):
@@ -399,7 +407,8 @@ class ContinuousBatcher:
         noise key; the penalty window and the step zeroed."""
         state = self._state
         for k in ("k", "v"):
-            state["kv"][k][:, slot, :, :rows].copy_(scratch["kv"][k][:, 0, :, :rows])
+            state["kv"][k].narrow(1, slot, 1).narrow(3, 0, rows).copy_(
+                scratch["kv"][k].narrow(1, 0, 1).narrow(3, 0, rows))
         for k in ("frame", "pos", "done", "noise_key"):
             state[k][slot].copy_(scratch[k][0])
         state["sampling"][:, slot].copy_(scratch["sampling"][:, 0])
@@ -412,11 +421,11 @@ class ContinuousBatcher:
         decode_mod.mark_done(self._state, to_device_async(mask, self.engine.device))
 
     def _decode(self, kv_b: int):
-        """One chunk of the pool: the eager loop on the CPU, replays of the
-        pool's graph for (allocation, read window) on the card.  Returns
-        (frames, emitted) on the device."""
+        """One chunk of the pool: the eager loop on the CPU and on a mesh,
+        replays of the pool's graph for (allocation, read window) on the
+        card.  Returns (frames, emitted) on the device."""
         eng, state = self.engine, self._state
-        if eng.device.type != "cuda":
+        if eng.device.type != "cuda" or eng.mesh is not None:
             noise = None
             if any(r is not None and r.noise is not None for r in self._slot_req):
                 noise = _RowNoise(list(self._slot_req), eng.cfg)

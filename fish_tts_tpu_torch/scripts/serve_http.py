@@ -10,8 +10,9 @@
     curl -X DELETE localhost:8080/requests/3
 
 Requests join the running decode pool mid-flight (``engine/serve.py``) and
-their PCM streams as it is decoded.  ``--vocoder-device-index`` refuses any
-value: the port serves on one card.
+their PCM streams as it is decoded.  ``--vocoder-device-index N`` puts the
+pool codec on the N-th device of ``--device``'s type (disaggregated serving:
+its rounds run on a stream of their own, beside the LM's chunks).
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     help="seconds to finish in-flight requests on shutdown")
     ap.add_argument("--vocoder-device-index", type=int, default=None,
-                    help="a second card for the pool codec (refused: the port serves on "
-                         "one card)")
+                    help="the device (of --device's type) for the disaggregated pool codec")
     ap.add_argument("--voices", default=None,
                     help="directory of <name>.npy voice profiles (optional <name>.txt "
                          "transcripts) served as per-request voices via the JSON 'voice' "
@@ -47,13 +47,21 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    import torch
+
     from fish_tts_tpu_torch import VoiceProfile, get_instance
     from fish_tts_tpu_torch.serving.http import make_server
-    from fish_tts_tpu_torch.synthesizer import ONE_CARD_VOCODER
 
-    # refuse before the model load, which would otherwise run only to fail
+    # fail fast on a bad device index, before the model load would run only
+    # to die on it
+    vdev = None
     if args.vocoder_device_index is not None:
-        ap.error(f"--vocoder-device-index {args.vocoder_device_index}: {ONE_CARD_VOCODER}")
+        idx = args.vocoder_device_index
+        n_dev = torch.cuda.device_count() if args.device == "cuda" else 1  # torch has one CPU
+        if not 0 <= idx < n_dev:
+            ap.error(f"--vocoder-device-index {idx} out of range: this host has {n_dev} "
+                     f"device(s)")
+        vdev = torch.device("cuda", idx) if args.device == "cuda" else torch.device("cpu")
 
     voices = {}
     if args.voices:
@@ -66,7 +74,7 @@ def main(argv=None) -> int:
     tts = get_instance(model_dir=args.model_dir, precision=args.precision, device=args.device,
                        warmup=not args.no_warmup)
     srv, driver = make_server(tts, host=args.host, port=args.port, slots=args.slots,
-                              max_queue=args.max_queue, voices=voices)
+                              max_queue=args.max_queue, vocoder_device=vdev, voices=voices)
     logging.info("serving on http://%s:%d (slots=%d, max_queue=%d)", args.host, args.port,
                  args.slots, args.max_queue)
 

@@ -483,7 +483,8 @@ def make_server(tts, host: str = "127.0.0.1", port: int = 8080,
     """Build (server, driver) over ``tts.serve(...)``.  The caller runs
     ``server.serve_forever()`` (blocking) or in a thread, and should
     ``driver.close(); server.shutdown()`` to stop.  ``voices`` maps names to
-    :class:`VoiceProfile` objects for per-request voice cloning."""
+    :class:`VoiceProfile` objects for per-request voice cloning;
+    ``vocoder_device`` goes to ``tts.serve`` (the pool codec's device)."""
     sess = tts.serve(slots=slots, vocoder_device=vocoder_device,
                      max_queue=max_queue)
     driver = ServeDriver(sess)

@@ -29,6 +29,7 @@ and it is read back only after the next LM chunk has been requested.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -59,10 +60,6 @@ _instance_lock = threading.Lock()
 _VOCODER_BUCKETS = (10, 20, 40, 80, 160, 320, 640, 1280, 2048)
 
 PRECISIONS = ("bf16", "fp16", "fp32", "int8")
-# Why ``vocoder_device`` refuses: the port serves on one card (multi-device
-# is still to be ported).
-ONE_CARD_VOCODER = ("vocoder_device: the port serves on one card; the codec runs on the LM's "
-                    "device")
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
            "int8": torch.bfloat16}
 
@@ -213,12 +210,17 @@ class FishTTS:
     tokenizer.tiktoken (and special_tokens.json) with the weights either
     native (lm.safetensors, vocoder.safetensors, vocoder_config.json) or
     the reference's model.pth and codec.pth, converted as they load.
+
+    ``engine_config=EngineConfig(tp_size=..., dp_size=...)`` puts the LM on
+    a (dp, tp) mesh over ``devices`` (default: every visible card; on the
+    CPU, tp * dp handles to it), as the engine documents; the codec stays on
+    ``device``.
     """
 
     def __init__(self, model_dir: str | Path | None = None, device: str = "cuda",
                  precision: Literal["bf16", "fp16", "fp32", "int8"] = "bf16",
                  warmup: bool = True, *, engine_config: EngineConfig | None = None,
-                 seed: int = 0, _testing_bundle=None):
+                 seed: int = 0, devices: list | None = None, _testing_bundle=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         self.device = resolve_device(device)
@@ -245,7 +247,7 @@ class FishTTS:
             self._vocoder_params = ckpt.to_device(cast_params(self._vocoder_params, dtype),
                                                   self.device)
         self._engine = GenerationEngine(params, self._cfg, self._tokenizer,
-                                        engine_cfg=engine_config, seed=seed)
+                                        engine_cfg=engine_config, seed=seed, devices=devices)
         # RTF and audio seconds follow the loaded codec's frame rate
         self._engine.metrics.audio_tokens_per_sec = (
             self._vocoder_cfg.sample_rate / self._vocoder_cfg.frame_length)
@@ -629,9 +631,13 @@ class FishTTS:
         >>> for ev in sess.run():
         ...     play(ev.request_id, ev.pcm)
 
-        ``vocoder_device``: only ``None`` (the codec on the LM's card) runs
-        in the port.  ``max_queue`` bounds the queued requests (``submit``
-        raises ``engine.serve.QueueFull`` at it; 0 = unbounded).
+        ``vocoder_device``: a device for the pool codec (disaggregated
+        serving): its parameters and state live there and its rounds run on
+        a CUDA stream of their own, concurrently with the LM's chunks instead
+        of queued behind them (see :class:`ServeSession`).  ``None`` keeps
+        it on the instance's device and the pool's stream.  ``max_queue``
+        bounds the queued requests (``submit`` raises
+        ``engine.serve.QueueFull`` at it; 0 = unbounded).
         ``warmup`` drains one tiny request first, so that the pool's graphs
         are captured before the first real request; ``None`` follows the
         instance's own warmup setting."""
@@ -858,20 +864,36 @@ class ServeSession:
     Flushes are ``decode_chunk`` frames wide; a request's shorter final
     chunk is zero-padded into the same call (the decode is causal, so its
     samples are exact) and the host truncates.  Streamed PCM includes the
-    EOS frame, as ``synthesize_stream``'s does."""
+    EOS frame, as ``synthesize_stream``'s does.
+
+    ``vocoder_device`` (disaggregated serving, JAX ``synthesizer.py:1283-
+    1305``): the pool codec's parameters and state live on that device and
+    its rounds run on a CUDA stream of its own there: on a second card that
+    card's work, on the LM's card a second stream, so a round no longer
+    queues behind the LM chunk.  Its codes go there with
+    ``to_device_async`` on that stream, and its PCM read waits on that
+    stream's event.  Everything a round makes is made on that stream;
+    the parameters, placed on the instance's stream, are waited for once."""
 
     def __init__(self, tts: FishTTS, slots: int = 8, vocoder_device=None, max_queue: int = 0):
         from fish_tts_tpu_torch.engine.serve import ContinuousBatcher
 
-        if vocoder_device is not None:
-            raise NotImplementedError(ONE_CARD_VOCODER)
         self._tts = tts
         self._srv = ContinuousBatcher(tts._engine, slots=slots, max_queue=max_queue)
         self._slots = slots
         self._n = self._srv.chunk  # the flush width: the LM chunk's frames
+        self._vdev = self._vstream = None
+        self._vparams = tts._vocoder_params
+        if vocoder_device is not None:
+            self._vdev = resolve_device(vocoder_device)
+            self._vparams = ckpt.to_device(tts._vocoder_params, self._vdev)
+            if self._vdev.type == "cuda":
+                self._vstream = torch.cuda.Stream(self._vdev)
+                # the parameters' copies were queued on the device's current stream
+                self._vstream.wait_stream(torch.cuda.current_stream(self._vdev))
         init, self._decode = tts._pool_vocoder_fns(slots)
-        with self._srv.on_stream():
-            self._state = init(tts._vocoder_params)
+        with self._on_codec_stream():
+            self._state = init(self._vparams)
         self._streams: dict[int, _SlotAudioStream] = {}
         # per lane, a FIFO of audio streams: [0] flushes, the rest wait
         self._slot_q: list[list[_SlotAudioStream]] = [[] for _ in range(slots)]
@@ -886,6 +908,15 @@ class ServeSession:
         self._chain_retry: dict[int, _LongChain] = {}
         # one codec round in flight: ((host PCM, copy event) | None, emits)
         self._pending = None
+
+    def _on_codec_stream(self):
+        """A context that makes the pool codec's stream current: its own on
+        a ``vocoder_device`` card, else the LM pool's."""
+        if self._vstream is not None:
+            return torch.cuda.stream(self._vstream)
+        if self._vdev is not None:
+            return contextlib.nullcontext()
+        return self._srv.on_stream()
 
     def submit(self, text: str, *, max_new_tokens: int = 2048, temperature: float = 0.7,
                top_p: float = 0.8, repetition_penalty: float = 1.1, seed: int | None = None,
@@ -1025,8 +1056,8 @@ class ServeSession:
         (the driver has already ended their consumers' streams)."""
         self._srv.reset()
         init, _ = self._tts._pool_vocoder_fns(self._slots)
-        with self._srv.on_stream():
-            self._state = init(self._tts._vocoder_params)
+        with self._on_codec_stream():
+            self._state = init(self._vparams)
         self._streams.clear()
         self._slot_q = [[] for _ in range(self._slots)]
         self._pending = None
@@ -1166,11 +1197,12 @@ class ServeSession:
                     del self._streams[st.rid]
         audio = None
         if active.any():
-            dev = self._tts.device
-            self._state, pcm = self._decode(
-                self._tts._vocoder_params, self._state, to_device_async(codes, dev),
-                to_device_async(active, dev), to_device_async(reset, dev))
-            audio = start_fetch(pcm)  # read next round
+            dev = self._vdev or self._tts.device
+            with self._on_codec_stream():
+                self._state, pcm = self._decode(
+                    self._vparams, self._state, to_device_async(codes, dev),
+                    to_device_async(active, dev), to_device_async(reset, dev))
+                audio = start_fetch(pcm)  # read next round, after this stream's event
         nxt = (audio, emits) if (audio is not None or emits) else None
         out = self._emit(*self._pending) if self._pending is not None else []
         self._pending = nxt

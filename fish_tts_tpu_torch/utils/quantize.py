@@ -46,6 +46,14 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
     return (out.float() * w["s"][..., 0]).to(x.dtype)
 
 
+def qmm_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ W^T`` in float32 for a plain or quantized weight: a row-parallel
+    rank's partial product, summed with the others' before one rounding."""
+    if not is_quantized(w):
+        return x.float() @ w.float().transpose(-1, -2)
+    return (x.float() @ w["q"].float().transpose(-1, -2)) * w["s"][..., 0]
+
+
 def qgather(table, idx: torch.Tensor, out_dtype) -> torch.Tensor:
     """Embedding-row gather from a plain or row-quantized table."""
     if not is_quantized(table):

@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from test_torch_stream import loud_vocoder
 from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
@@ -175,8 +176,12 @@ def test_serve_requires_vocoder_and_one_card():
                    _testing_bundle=(cfg, params, tok, vcfg, None))
     with pytest.raises(RuntimeError, match="vocoder"):
         bare.serve()
-    with pytest.raises(NotImplementedError, match="vocoder_device"):
-        make_tts().serve(vocoder_device="cuda:1")
+    tts = make_tts()
+    sess = tts.serve(vocoder_device="cpu", warmup=False)
+    assert sess._vdev == torch.device("cpu") and sess._vstream is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tts.serve(vocoder_device="cuda:1")
 
 
 def test_serve_warmup_leaks_no_events(tts):

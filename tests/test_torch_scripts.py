@@ -33,7 +33,6 @@ from fish_tts_tpu_torch.scripts import (
     example_synthesis,
     serve_http,
 )
-from fish_tts_tpu_torch.synthesizer import ONE_CARD_VOCODER
 from fish_tts_tpu_torch.utils.audio import to_wav_bytes
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -157,12 +156,32 @@ def test_convert_checkpoint_verify_fails_on_an_extra_key(reference_dir, tmp_path
     assert "VERIFY FAILED" in proc.stdout
 
 
-def test_serve_http_refuses_a_vocoder_device(tiny_model_dir, capsys):
+def test_serve_http_refuses_a_vocoder_device(tiny_model_dir, capsys, monkeypatch):
+    """An index past the host's devices of ``--device``'s type exits 2 with
+    the JAX script's message; an index in range reaches ``make_server`` as
+    that device."""
     with pytest.raises(SystemExit) as e:
         serve_http.main(["--model-dir", str(tiny_model_dir), "--device", "cpu",
-                         "--vocoder-device-index", "0"])
+                         "--vocoder-device-index", "1"])
     assert e.value.code == 2
-    assert ONE_CARD_VOCODER in capsys.readouterr().err
+    assert ("--vocoder-device-index 1 out of range: this host has 1 device(s)"
+            in capsys.readouterr().err)
+
+    import torch
+
+    from fish_tts_tpu_torch.serving import http as port_http
+
+    seen = {}
+
+    def fake_make_server(tts, **kw):
+        seen.update(kw)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(port_http, "make_server", fake_make_server)
+    with pytest.raises(SystemExit):
+        serve_http.main(["--model-dir", str(tiny_model_dir), "--device", "cpu", "--no-warmup",
+                         "--vocoder-device-index", "0"])
+    assert seen["vocoder_device"] == torch.device("cpu")
 
 
 def free_port() -> int:

@@ -176,10 +176,12 @@ def test_synthesize_returns_valid_wav():
 
 
 def test_unported_options_raise():
-    """Only multi-device sharding raises; the sampler options construct."""
-    for field, value in (("tp_size", 2), ("dp_size", 2)):
-        with pytest.raises(NotImplementedError):
-            EngineConfig(**{field: value})
+    """Every option constructs, multi-device sharding included (a mesh size
+    below 1 raises); the default device is the card."""
+    assert EngineConfig(tp_size=4, dp_size=2).tp_size == 4
+    for field in ("tp_size", "dp_size"):
+        with pytest.raises(ValueError):
+            EngineConfig(**{field: 0})
     EngineConfig(sample_top_k=8, approx_top_k=True, fast_kernel=False)
     assert dataclasses.asdict(EngineConfig())["sample_top_k"] == -1
     if not torch.cuda.is_available():
