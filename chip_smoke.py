@@ -228,6 +228,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import struct
 import subprocess
@@ -290,6 +291,7 @@ SLOW_PHASE_CASES = ("B=1", "B=16")  # the cases that print the kernel's time by 
 HEADLESS = "slow_stack_step (no head)"  # the slow-stack kernel for an untied head
 S8 = "fast_decoder_s8"  # the fast decoder's "s8" dequant variant
 S8_BATCHES = (1, 4, 8, 16)
+S8_PHASE_BATCH = 16  # the B at which the "s8" and "value" phase clocks print side by side
 S8_VALUE_TOL = 0.03  # "s8" logits against "value": tests/test_fast_decoder.py's 3% of the largest
 # The "s8" kernel against its plain version, row by quantized row
 # (testing.s8_decision_margins): a row's int8 values may differ only by one
@@ -630,6 +632,23 @@ def check_slow_stack(params, cfg, rope, case, gen, dev):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err, note=note)
 
 
+def fast_decoder_spills(log: Path) -> list[str]:
+    """Each fast-decoder instantiation's stack frame, spill bytes and
+    registers, from the kernels' build log (``ops/kernels.build`` compiles
+    with ``-Xptxas -v``), or why there are none."""
+    if not log.exists():
+        return [f"no ptxas log at {log}"]
+    lines, out = log.read_text().splitlines(), []
+    for i, line in enumerate(lines):
+        m = re.search(r"fast_frame_kernelILi(\d+)ELb(\d)", line)
+        if m and "Compiling entry" in line and i + 3 < len(lines):
+            regs = re.search(r"Used (\d+) registers", lines[i + 3])
+            out.append(f"fast_frame_kernel<MAXB={m.group(1)}, "
+                       f"{'s8' if m.group(2) == '1' else 'value'}>: {lines[i + 2].strip()}, "
+                       f"{regs.group(1) if regs else '?'} registers")
+    return out
+
+
 def fast_phase_labels(cfg) -> list[str]:
     """The fast-decoder kernel's phases, one per grid-wide barrier, in order
     (csrc/fast_decoder.cu)."""
@@ -653,12 +672,14 @@ def slow_phase_labels(cfg) -> list[str]:
     return layer * cfg.n_layer + ["final norm + head"]
 
 
-def phase_breakdown(kern, module, labels: list[str], dev) -> list[str]:
+def phase_breakdown(kern, module, labels: list[str], dev,
+                    sums: dict | None = None) -> list[str]:
     """One call of a persistent kernel with its barrier clock
     (``module.phase_clock``) on.  Per phase: from the first block leaving
     the barrier before it to the last block arriving at its own (the
     phase's span), then from that last arrival to the last departure (the
-    barrier's release), summed over the call."""
+    barrier's release), summed over the call; with ``sums``, also filled
+    with label -> [count, span us, release us]."""
     import torch
 
     from fish_tts_tpu_torch.ops import kernels
@@ -679,7 +700,7 @@ def phase_breakdown(kern, module, labels: list[str], dev) -> list[str]:
     span = (arrive.max(dim=0).values - prev_leave.min(dim=0).values) / 1e3
     release = (leave.max(dim=0).values - arrive.max(dim=0).values) / 1e3
     total = (leave.max() - start.min()).item() / 1e3
-    sums: dict[str, list[float]] = {}
+    sums = {} if sums is None else sums
     for i, label in enumerate(labels):
         row = sums.setdefault(label, [0, 0.0, 0.0])
         row[0] += 1
@@ -695,10 +716,10 @@ def phase_breakdown(kern, module, labels: list[str], dev) -> list[str]:
     return lines
 
 
-def fast_phase_breakdown(kern, cfg, dev) -> list[str]:
+def fast_phase_breakdown(kern, cfg, dev, sums: dict | None = None) -> list[str]:
     from fish_tts_tpu_torch.ops import fast_decoder as fd
 
-    return phase_breakdown(kern, fd, fast_phase_labels(cfg), dev)
+    return phase_breakdown(kern, fd, fast_phase_labels(cfg), dev, sums)
 
 
 def slow_phase_breakdown(kern, cfg, dev) -> list[str]:
@@ -924,11 +945,12 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = Fals
     bms, by = bound(read + written, ops, INT8_OPS_PER_S if dequant == "s8" else BF16_OPS_PER_S)
     # the bound if the layers stream from device memory once per position
     streamed_ms = (read + (K - 1) * nbytes(*weights) + written) / HBM_BYTES_PER_S * 1e3
+    phases: dict = {}
     if not per_row:
-        for line in fast_phase_breakdown(kern, cfg, dev):
+        for line in fast_phase_breakdown(kern, cfg, dev, phases):
             print(f"kernel {name} B={B} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=m["max_abs_err"], margins=m,
+                max_abs_err=m["max_abs_err"], margins=m, phases=phases,
                 note=(f"codes equal but for {m['knife_edges']} knife edge(s), two calls "
                       f"bit-equal, logits max abs err {m['max_abs_err']:.3g} "
                       f"(tol {tol:.3g}) over {m['compared']} positions; {value_note}"
@@ -947,6 +969,26 @@ KERNELS = [
     # the "s8" dequant variant (the JAX kernel's dequant="s8", :98, :239-262)
     (S8, "fish_tts_tpu_torch/csrc/fast_decoder.cu", "fish_tts_tpu/ops/fast_decoder.py:686"),
 ]
+
+
+def s8_beside_value(results: dict) -> None:
+    """The "s8" kernel's time beside the "value" kernel's from the same run
+    at each B of S8_BATCHES (B = 8: the value kernel's per-row case), with
+    their ratio; at S8_PHASE_BATCH their phase clocks side by side."""
+    value = results["fast_decode_frame"]
+    for B in S8_BATCHES:
+        label = f"B={B}" if f"B={B}" in value else f"B={B} {PER_ROW}"
+        s, v = results[S8][f"B={B}"]["ms"], value[label]["ms"]
+        print(f"kernel {S8} B={B} beside fast_decode_frame {label}: s8 {s:.4f} ms, value "
+              f"{v:.4f} ms, s8/value {s / v:.3f}", flush=True)
+    B = S8_PHASE_BATCH
+    ps, pv = results[S8][f"B={B}"]["phases"], value[f"B={B}"]["phases"]
+    for label, (n, span_v, rel_v) in pv.items():
+        _, span_s, rel_s = ps[label]
+        print(f"kernel {S8} B={B} phases beside value: {label:24s} x{n:3d}: span value "
+              f"{span_v:8.1f} us ({span_v / n:6.2f} each), s8 {span_s:8.1f} us "
+              f"({span_s / n:6.2f} each), s8/value {span_s / span_v:5.2f}; release value "
+              f"{rel_v:7.1f}, s8 {rel_s:7.1f} us", flush=True)
 
 
 def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=SLOW_CASES):
@@ -988,6 +1030,7 @@ def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=S
                                                 dequant="s8"))
     print("kernel " + gate_s8_excused(f"B={'/'.join(map(str, S8_BATCHES))}", [
         results[S8][f"B={B}"]["margins"] for B in S8_BATCHES]), flush=True)
+    s8_beside_value(results)
     check_s8_tiny(dev)
     untied = dataclasses.replace(cfg, tie_word_embeddings=False)
     for case in slow_cases[:3]:  # B = 1, 4, 16
@@ -3667,6 +3710,8 @@ def main() -> int:
     kernels.lib()
     print(f"build: {so.name} and the BPE encoder in {time.perf_counter() - t:.1f} s",
           flush=True)
+    for line in fast_decoder_spills(so.parent / "fast_decoder.cu.log"):
+        print(f"build: {line}", flush=True)
 
     results = phase_kernels(dev)
     phase_ab()

@@ -15,12 +15,30 @@
 //
 // "value": each GEMV input rounds to bf16, products accumulate in f32.
 // "s8": each GEMV input row is quantized to int8 by its own absmax
-// (sc = max(amax, 1e-30) / 127, xq = round_half_even(x / sc)), computed
-// where the row is staged, after the barrier that ends the phase writing
-// it, so every block gets the same row and scale; the products are s8 x s8
-// __dp4a sums in s32, scaled as (sum * sc) * weight scale.  The embedding
-// stays exact.  The s8 staging is half the bytes of the bf16 one; the
-// bound is the same bytes, its operations at the int8 rate.
+// (sc = max(amax, 1e-30) / 127, xq = round_half_even(x / sc) with an IEEE
+// quotient), after the barrier that ends the phase writing it, so every
+// block gets the same row and scale; the products are s8 x s8 sums in s32
+// on the int8 tensor cores (mma.sync m16n8k32), scaled as (sum * sc) *
+// weight scale.  The embedding stays exact.  The s8 staging is half the
+// bytes of the bf16 one; the bound is the same bytes, its operations at
+// the int8 rate.  Beyond the bytes, what the "s8" variant adds to every
+// phase is the absmax of each input row: a pass per row in every block
+// (for the W_2 input, B x I f32 read from L2) before the quantizing pass,
+// and a GEMV whose per-stream dot products reread the staging for every
+// weight chunk.  So a row's absmax comes with the phase that computes it:
+// the W_1/W_3 phase publishes each block's per-stream max of the SwiGLU
+// rows it stores ((grid, B) floats in scratch), which the W_2 phase folds
+// while its one read of the rows from L2 is in flight (cp.async into a
+// ring in shared memory); the attention output's max is taken where each
+// warp writes it.  Only the RMSNorm outputs keep an absmax pass of their
+// own, over shared memory: their values exist only once the row's RMS is
+// known, and the norm weight scales each lane after it, so no max of the
+// residual rows gives theirs.  The quotient x / sc is taken as x times the
+// reciprocal, with a tie near a half-integer decided exactly
+// (persistent.cuh, s8_fast / s8_near).  A tensor-core tile takes every
+// stream's 32 staged bytes at once (A, 16 x 32) against 8 weight rows (B),
+// so the staging is read once per n8 tile, and the s32 sums live in the
+// mma fragments, not in per-stream registers.
 //
 // Bound: bytes.  At S1-mini width the four int8 layers are 62.9 MB: read
 // once that is 0.019 ms at 3.35 TB/s, but the stack does not fit the 50 MB
@@ -130,6 +148,7 @@ struct FastArgs {
   // scales (trace_cap x B), in the order the rows are made
   int8_t* trace;
   float* trace_sc;
+  float* smax;  // (grid, B) the s8 variant's per-block maxima of the SwiGLU rows
   int B, K, L, D, H, Hkv, Dh, I, Vr, W, h_bf16, clock_cap, trace_cap;
   int wslots;        // weight slots in shared memory: 1 or 2
   int wslot_bytes;   // bytes of one slot
@@ -141,20 +160,26 @@ struct FastArgs {
 //   act    one of: the bf16 staging of a GEMV's input (B x its K); that of a
 //          normed input (B x D) with the f32 input itself at xf_offset; the
 //          sampler's penalized logits and probabilities (2 x B x Vr f32).
-//          In the s8 variant the staging is int8 (B x its K), and the f32
-//          region at xf_offset holds the normed phases' input or the
-//          attention output (B x max(D, H*Dh))
+//          In the s8 variant the staging is int8 (B rows of its K at a
+//          stride of s8_ld(K)), the f32 region at xf_offset holds the
+//          normed phases' input or the attention output (B x max(D, H*Dh)),
+//          and the W_2 phase's ring of L2 reads follows the widest staging
 //   part   the GEMV's partial sums (and the sampler's per-lane scores)
 //   bits   the penalty window of the next sampled position, a bit per lane
 //   gum    its Gumbel noise at the lanes this block owns
 //   slots  one or two weight slots (the launch sizes them)
 __host__ __device__ inline size_t xf_offset(int B, int D, int q_size, bool s8) {
-  if (s8) return round16((size_t)B * (D > q_size ? D : q_size));
+  if (s8) return round16((size_t)B * s8_ld(D > q_size ? D : q_size));
   return round16((size_t)B * D * sizeof(__nv_bfloat16));
+}
+// the s8 variant's ring of L2 reads (quantize_l2_rows_s8) sits after its staging
+__host__ __device__ inline size_t s8_ring_offset(int B, int max_k) {
+  return round16((size_t)B * s8_ld(max_k));
 }
 __host__ __device__ inline size_t act_bytes(int B, int D, int q_size, int max_k, int Vr,
                                             bool s8) {
-  size_t a = (size_t)B * max_k * (s8 ? 1 : sizeof(__nv_bfloat16));
+  size_t a = s8 ? s8_ring_offset(B, max_k) + sizeof(float4) * kS8Ring * kThreads
+                : (size_t)B * max_k * sizeof(__nv_bfloat16);
   const size_t s = (size_t)B * Vr * 2 * sizeof(float);
   const size_t n = xf_offset(B, D, q_size, s8) +
                    (size_t)B * (s8 && q_size > D ? q_size : D) * sizeof(float);
@@ -268,12 +293,14 @@ __device__ void rows_softmax_stats(const float* v, int B, int n, float* red, flo
 // xf[b, k] = the input, then the staging of the normed input
 // n[b, k] = xf[b, k] * rstd_b * nw[k], with rstd_b the RMSNorm scale of
 // row b and nw in shared memory: bf16(n) into xs, or in the s8 variant n
-// quantized into the int8 xs with its row scales in xsc.  The input is
+// quantized into the int8 xs with its row scales in xsc and their
+// reciprocals in xrc (a pass for the absmax, then one that quantizes, four
+// lanes a thread).  The input is
 // read once, by all threads at once.
 template <bool S8>
 __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int* code,
                                            const float* nw, void* stage, float* xf,
-                                           float* red, float* rstd, float* xsc) {
+                                           float* red, float* rstd, float* xsc, float* xrc) {
   const int B = a.B, D = a.D;
   for (int i = threadIdx.x; i < B * D / 4; i += kFastThreads) {  // 4 lanes at a time
     float4 v;
@@ -297,9 +324,14 @@ __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int
   __syncthreads();
   rms_scales(xf, B, D, a.eps, red, rstd);
   if constexpr (S8) {
-    auto normed = [&](int b, int k) { return (xf[(size_t)b * D + k] * rstd[b]) * nw[k]; };
-    row_scales_s8(normed, B, D, red, xsc);
-    quantize_rows_s8(normed, B, D, xsc, static_cast<int8_t*>(stage));
+    auto normed = [&](int b, int k4) {
+      const float4 x = reinterpret_cast<const float4*>(xf + (size_t)b * D)[k4];
+      const float4 w = reinterpret_cast<const float4*>(nw)[k4];
+      const float r = rstd[b];
+      return make_float4((x.x * r) * w.x, (x.y * r) * w.y, (x.z * r) * w.z, (x.w * r) * w.w);
+    };
+    row_scales_s8(normed, B, D / 4, xsc, xrc);
+    quantize_rows_s8(normed, B, D / 4, xsc, xrc, static_cast<int8_t*>(stage), s8_ld(D));
   } else {
     __nv_bfloat16* xs = static_cast<__nv_bfloat16*>(stage);
     for (int i = threadIdx.x; i < B * D; i += kFastThreads) {
@@ -312,15 +344,17 @@ __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int
 
 // Attention of every stream and query head at position pos (cache rows
 // r < pos plus the token's own key), run in every block; the output goes
-// to out (B, H*Dh), the input of W_o: bf16, or f32 in the s8 variant.  One warp per (stream, KV
-// head, share of its G query heads), the shares as many as keep every warp
-// busy; lane i holds dims (2i, 2i + 1).  Every load (own key and value, the
+// to out (B, H*Dh), the input of W_o: bf16, or f32 in the s8 variant,
+// which also takes each stream's max |output| into omax (zeroed by the
+// caller) with one shared-memory atomicMax per task.  One warp per
+// (stream, KV head, share of its G query heads), the shares as many as
+// keep every warp busy; lane i holds dims (2i, 2i + 1).  Every load (own key and value, the
 // queries, the cache rows) is issued before any score is formed, and
 // after_loads() runs once the first task's loads have landed.  Block 0
 // also writes the token's roped key and value into cache row pos.
 template <bool S8, typename F>
 __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
-                                           const __nv_bfloat16* rope_s, void* out,
+                                           const __nv_bfloat16* rope_s, void* out, float* omax,
                                            F after_loads) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = a.H / a.Hkv, q_size = a.H * a.Dh, kv_size = a.Hkv * a.Dh;
@@ -375,6 +409,7 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
       __stcg(reinterpret_cast<float2*>(a.kc + at), make_float2(ks[0], ks[1]));
       __stcg(reinterpret_cast<float2*>(a.vc + at), vs);
     }
+    float amx = 0.f;  // the s8 variant's max |output| of this task's lanes
     for (int g = 0; g < gs; ++g) {
       {
         if (g >= 2 && (g & 1) == 0) {  // the next pair of query heads
@@ -414,8 +449,9 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
         if (on) {
           const size_t at = (size_t)b * q_size + (j * G + g0 + g) * a.Dh + 2 * lane;
           if constexpr (S8) {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-                make_float2(o0 / den, o1 / den);
+            const float2 o = make_float2(o0 / den, o1 / den);
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = o;
+            amx = fmaxf(amx, fmaxf(fabsf(o.x), fabsf(o.y)));
           } else {
             __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
             o[0] = __float2bfloat16_rn(o0 / den);
@@ -423,6 +459,10 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
           }
         }
       }
+    }
+    if constexpr (S8) {
+      const float m = warp_max_pos(amx);
+      if (lane == 0) atomicMax(reinterpret_cast<int*>(omax) + b, __float_as_int(m));
     }
   }
   if (first) after_loads();
@@ -560,7 +600,7 @@ __device__ void merge_codes(const FastArgs& a, int cb, int* code) {
   __syncthreads();
 }
 
-// S8: the "s8" dequant mode (int8 staging, __dp4a GEMVs); else "value".
+// S8: the "s8" dequant mode (int8 staging, int8 tensor-core GEMVs); else "value".
 template <int MAXB, bool S8>
 __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
   // a skipped frame: every block reads the same flag before any barrier and
@@ -570,6 +610,9 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float rstd[kMaxBatch];
   __shared__ float xsc[kMaxBatch];  // the s8 staging's row scales
+  __shared__ float xrc[kMaxBatch];  // their reciprocals
+  // the s8 variant's per-stream maxima of the rows a phase computes
+  __shared__ float pmax[kMaxBatch];
   __shared__ float stat[2 * kMaxBatch];
   __shared__ float samp[3 * kMaxBatch];  // clamped temperature, top_p, penalty
   __shared__ float red[2 * kMaxBatch * kFastWarps];
@@ -637,19 +680,25 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
     if constexpr (S8) store_rows_s8<MAXB>(sp, slot(cur), ipart, S, B, xsc, out, ld);
     else store_rows<MAXB>(sp, slot(cur), part, S, B, out, ld);
   };
-  // after each s8 quantization of n-wide rows, with the block synchronised
-  int traced = 0;
-  auto trace = [&](int n) {
+  // after each s8 quantization of n-wide rows, with the block synchronised:
+  // block 0 copies the rows and their scales to row t of the trace, the
+  // input of matrix k (W_qkv, W_o, W_1/W_3, W_2) of layer l, or the head's
+  // (l == L), in s8_trace_layout order
+  auto trace = [&](int n, int pos, int l, int k) {
     if constexpr (S8) {
-      if (a.trace != nullptr && blockIdx.x == 0 && traced < a.trace_cap) {
-        int8_t* dst = a.trace + (size_t)traced * B * max_k;
-        for (int i = threadIdx.x; i < B * n; i += kFastThreads) {
-          const int b = i / n;
-          dst[(size_t)b * max_k + i - b * n] = xq[i];
+      const int t = (pos == 0 ? 0 : 4 * (L - 1) + 1 + (pos - 1) * (4 * L + 1)) + 4 * l + k;
+      if (a.trace != nullptr && blockIdx.x == 0 && t < a.trace_cap) {
+        int8_t* dst = a.trace + (size_t)t * B * max_k;
+        const int ld = s8_ld(n);
+#pragma unroll 1
+        for (int b = 0; b < B; ++b) {
+#pragma unroll 1
+          for (int c = threadIdx.x; c < n / 16; c += kFastThreads)
+            reinterpret_cast<int4*>(dst + (size_t)b * max_k)[c] =
+                reinterpret_cast<const int4*>(xq + (size_t)b * ld)[c];
         }
-        if ((int)threadIdx.x < B) a.trace_sc[traced * B + threadIdx.x] = xsc[threadIdx.x];
+        if ((int)threadIdx.x < B) a.trace_sc[t * B + threadIdx.x] = xsc[threadIdx.x];
       }
-      ++traced;
     }
   };
   // at a weighted phase's start: wait for this phase's copy
@@ -709,8 +758,8 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
       Span sp = begin(pos, kQkvW, l);
       if (l == 0 && pos > 1) merge_codes(a, pos - 1, code);  // position 1 embeds a0
       stage_norm<S8>(a, l > 0 ? kFromX : (pos == 0 ? kFromH : kFromEmb), code,
-                     slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
-      trace(D);
+                     slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc, xrc);
+      trace(D, pos, l, 0);
       prefetch(pos, kQkvW, l);
       if (l == 0) {
         if (x_owner) x_own = xf[xb * D + xr0 + xj];
@@ -729,13 +778,21 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
 
       // phase 2: attention + W_o + residual
       sp = begin(pos, kWoW, l);
-      attend_all<S8>(a, l, pos, rope_s, S8 ? static_cast<void*>(xf) : stage,
+      if constexpr (S8) {
+        if ((int)threadIdx.x < B) pmax[threadIdx.x] = 0.f;
+        __syncthreads();
+      }
+      attend_all<S8>(a, l, pos, rope_s, S8 ? static_cast<void*>(xf) : stage, pmax,
                      [&]() { prefetch(pos, kWoW, l); });
       if constexpr (S8) {
-        auto att = [&](int b, int k) { return xf[(size_t)b * q_size + k]; };
-        row_scales_s8(att, B, q_size, red, xsc);
-        quantize_rows_s8(att, B, q_size, xsc, xq);
-        trace(q_size);
+        // the scales of the maxima attend_all took as it wrote the output
+        if ((int)threadIdx.x < B) set_scale_s8(threadIdx.x, pmax[threadIdx.x], xsc, xrc);
+        __syncthreads();
+        auto att = [&](int b, int k4) {
+          return reinterpret_cast<const float4*>(xf + (size_t)b * q_size)[k4];
+        };
+        quantize_rows_s8(att, B, q_size / 4, xsc, xrc, xq, s8_ld(q_size));
+        trace(q_size, pos, l, 1);
       }
       S = gemv(sp);
       if (x_owner) x_own += row(sp, S, xj, xb);
@@ -745,23 +802,26 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
 
       // phase 3: RMSNorm + W_1/W_3 SwiGLU
       sp = begin(pos, kW13W, l);
-      stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
-      trace(D);
+      stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc,
+                     xrc);
+      trace(D, pos, l, 2);
       prefetch(pos, kW13W, l);
       S = gemv(sp);
-      store(sp, S, a.hbuf, I);
+      if constexpr (S8)  // with each block's maxima of the rows it stores
+        store_rows_s8<MAXB>(sp, slot(cur), ipart, S, B, xsc, a.hbuf, I, pmax, a.smax);
+      else
+        store(sp, S, a.hbuf, I);
       finish(pos, kW13W, l);
       barrier();
 
       // phase 4: W_2 + residual
       sp = begin(pos, kW2W, l);
       if constexpr (S8) {
-        // the SwiGLU product is read from L2 twice: for its scales, then
-        // for its quantization
-        auto hid = [&](int b, int k) { return __ldcg(a.hbuf + (size_t)b * I + k); };
-        row_scales_s8(hid, B, I, red, xsc);
-        quantize_rows_s8(hid, B, I, xsc, xq);
-        trace(I);
+        // the SwiGLU product read from L2 once, its scales from the maxima
+        // the W_1/W_3 phase published
+        quantize_l2_rows_s8(a.hbuf, a.smax, B, I / 4, xsc, xrc, xq, s8_ld(I),
+                            reinterpret_cast<float4*>(smem + s8_ring_offset(B, max_k)));
+        trace(I, pos, l, 3);
       } else {
         for (int i = threadIdx.x; i < B * I / 4; i += kFastThreads) {
           const float4 v = __ldcg(reinterpret_cast<const float4*>(a.hbuf) + i);
@@ -801,8 +861,9 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
         if (win[e] < b * Vr || win[e] >= (b + 1) * Vr) win[e] = -1;  // names no lane
       }
     }
-    stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc);
-    trace(D);
+    stage_norm<S8>(a, kFromX, code, slot_norm(sp, slot(cur)), stage, xf, red, rstd, xsc,
+                   xrc);
+    trace(D, pos, L, 0);
     prefetch(pos, kHeadW, 0);
     if ((int)threadIdx.x < B * nl) gum[threadIdx.x] = g_own;
 #pragma unroll
@@ -840,6 +901,12 @@ cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
   const size_t phase_bytes[] = {rows(fa.D) * q_size, 2 * rows(fa.I) * fa.D, rows(fa.D) * fa.I,
                                 rows(fa.Vr) * fa.D};
   for (size_t b : phase_bytes) slot = slot > b ? slot : b;
+  if (S8) {  // the s8 GEMV reads whole n8 tiles of rows
+    auto tiled = [&](int n) { return (rows(n) + 7) / 8 * 8; };
+    const size_t tile_bytes[] = {tiled(nqkv) * fa.D, tiled(fa.D) * q_size,
+                                 2 * tiled(fa.I) * fa.D, tiled(fa.D) * fa.I, tiled(fa.Vr) * fa.D};
+    for (size_t b : tile_bytes) slot = slot > b ? slot : b;
+  }
   size_t max_rows = rows(nqkv);
   for (int n : {fa.D, fa.I, fa.Vr}) max_rows = max_rows > rows(n) ? max_rows : rows(n);
   slot += 2 * round16(max_rows * sizeof(float) + 16) + fa.D * sizeof(float);  // scales, norm
@@ -847,8 +914,14 @@ cudaError_t launch_frame(FastArgs& fa, int cand_cap, cudaStream_t st) {
   // segment partial sums: at most max(rows per block, warps) tasks; the
   // sampler's per-lane scores reuse the same space
   const size_t tasks = max_rows + kFastWarps;
-  const size_t base = act_bytes(fa.B, fa.D, q_size, max_k, fa.Vr, S8) +
-                      round16(tasks * 2 * MAXB * sizeof(float)) + bits_bytes(fa.B, fa.Vr) +
+  size_t part_bytes = round16(tasks * 2 * MAXB * sizeof(float));
+  if (S8) {  // the s8 GEMV's s32 tiles: MAXB x 8 a task, at most max(kWarps, tiles) tasks
+    const size_t tiles = 2 * ((max_rows + 7) / 8);
+    const size_t t = tiles > (size_t)kFastWarps ? tiles : (size_t)kFastWarps;
+    part_bytes = part_bytes > t * MAXB * 8 * sizeof(int) ? part_bytes : t * MAXB * 8 * sizeof(int);
+  }
+  const size_t base = act_bytes(fa.B, fa.D, q_size, max_k, fa.Vr, S8) + part_bytes +
+                      bits_bytes(fa.B, fa.Vr) +
                       round16((size_t)fa.B * rows(fa.Vr) * sizeof(float));
 
   // the device's and the kernel's shared memory limits, and the occupancy
@@ -934,17 +1007,18 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.logits_out = static_cast<float*>(p[kLogitsOut]);
   // scratch, each part a multiple of 4 floats: x (B, D), qkv, the SwiGLU
   // hidden (B, I), the K and V caches (L, B, Hkv, K, Dh), the head logits
-  // (B, Vr), and the candidates' scores and lanes (cap each)
+  // (B, Vr), the candidates' scores and lanes, and the s8 variant's
+  // published maxima (cap each)
   const int cap = d[kCandCap];
   const long long parts[] = {(long long)a.B * a.D,
                              (long long)a.B * (a.H + 2 * a.Hkv) * a.Dh,
                              (long long)a.B * a.I,
                              (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
                              (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
-                             (long long)a.B * a.Vr, cap, cap};
-  float* at[8];
+                             (long long)a.B * a.Vr, cap, cap, cap};
+  float* at[9];
   long long used = 0;
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 9; ++i) {
     at[i] = static_cast<float*>(p[kScratch]) + used;
     used += (parts[i] + 3) / 4 * 4;
   }
@@ -957,6 +1031,7 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.head_buf = at[5];
   a.cand_v = at[6];
   a.cand_i = reinterpret_cast<int*>(at[7]);
+  a.smax = at[8];
   a.clock = static_cast<unsigned long long*>(p[kClock]);
   a.skip = static_cast<const unsigned char*>(p[kSkip]);
   a.trace = static_cast<int8_t*>(p[kTrace]);

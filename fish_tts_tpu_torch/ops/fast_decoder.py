@@ -351,10 +351,11 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     logits = alloc((B, K - 1, Vr), dtype=torch.float32, device=dev)
     cand_cap = BLOCKS_PER_SM * kernels.num_sms(dev) * B
     # one scratch buffer, carved by the kernel's entry: residual stream,
-    # qkv, SwiGLU hidden, per-frame K and V caches, head logits, and each
-    # block's best score and lane; each part rounded up to 4 floats
+    # qkv, SwiGLU hidden, per-frame K and V caches, head logits, each
+    # block's best score and lane, and the "s8" variant's per-block maxima of
+    # the SwiGLU rows; each part rounded up to 4 floats
     parts = (B * D, B * (H + 2 * Hkv) * Dh, B * I, L * B * Hkv * K * Dh,
-             L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap)
+             L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap, cand_cap)
     n_scratch = sum(-(-n // 4) * 4 for n in parts)
     key = (dev, B, K, L, D, H, Hkv, Dh, I, Vr)
     scratch = _scratch.get(key)
@@ -371,6 +372,8 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         kernels.require_cuda("s8_trace scales", trace[1], torch.float32, trace[0].shape[:2])
         if trace[0].dim() != 3 or trace[0].shape[1:] != (B, s8_trace_width(cfg)):
             raise ValueError(f"s8_trace: expected rows (T, {B}, {s8_trace_width(cfg)})")
+        if trace[0].data_ptr() % 16:  # block 0 copies the rows 16 bytes at a time
+            raise ValueError("s8_trace: rows are not 16-byte aligned")
     ptrs = [h_fast, a0, prev_rows, gumbel, temp, tp, rep, *weights, codes, logits, scratch,
             clock, skip, *trace]
     dims = [B, K, L, D, H, Hkv, Dh, I, Vr, W, int(h_fast.dtype == torch.bfloat16), cand_cap,
