@@ -66,7 +66,16 @@ printing its own lines; any failure raises and the script exits non-zero:
    (a parseable report: three rows whose ``audio_s`` is their frames x 2048
    / 44 100, a first chunk and a three-stream batch) and the five
    profilers, the serving one also with ``--sync`` (every row finite and
-   positive); the three kernels launched (path "tools").
+   positive), and the one-line bench (``scripts/bench.py``) twice: int8
+   with every stage at the JAX bench's settings, and bf16 with its decode
+   stage only (``check_bench``: exactly the stages' keys, no fallback or
+   failure key, the card's ``nvidia-smi`` line as the device, every number
+   finite and positive, ``rtf`` x ``value`` = 44 100 / 2048 x ``batch``
+   within their rounding, 200 frames timed, 16 serving slots, the precision
+   asked for; the port's claims drift lines are printed, not failed on;
+   ``check_bench_launches``: the launches of each bench run, read before
+   and after it, are each of the three kernels at int8 and the sampler
+   alone at bf16); the three kernels launched (path "tools").
 4. graph: at S1-mini width (GRAPH_CASES: B = 1, and B = 4 with two streams
    already done; R = 256 of S = 512), GRAPH_FRAMES frames through the eager
    loop (``decode.decode_chunk``) and through the captured CUDA graph
@@ -1083,7 +1092,24 @@ TOOLS = (
     ("profile_vocoder", ("-n", "2")),
     ("profile_serving", ("--slots", "8", "--requests", "16", "--budget", "100")),
     ("profile_serving", ("--slots", "8", "--requests", "16", "--budget", "100", "--sync")),
+    ("bench", ()),
+    ("bench", ("--bf16", "--no-ttfa", "--aggregate-batch", "0")),
 )
+# The keys of the bench's line (the JAX bench.py's): its decode stage and the
+# user path's stages (the aggregate stage adds one per batch size).
+BENCH_DECODE_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "rtf", "batch", "prefill_ms", "frames_timed",
+    "compile_s", "init_s", "init_compile_s", "init_materialize_s", "platform_first_op_s",
+    "init_build_s", "init_head_s", "precision", "device", "hbm_gb"}
+BENCH_USER_KEYS = {
+    "ttfa_ms", "ttfa_max_ms", "vocoder_frames_per_sec", "rtf_e2e", "serve_tok_per_sec",
+    "serve_slots", "serve_passes", "ttfa_busy_ms", "ttfa_busy_max_ms",
+    "serve_audio_tok_per_sec", "serve_audio_x_realtime", "serve_audio_passes",
+    "ttfa_audio_busy_ms"}
+# first-use costs, rounded to 0.1 s: 0.0 once the kernels are built and the
+# context is up, and init_head_s always (the port prepares no head)
+BENCH_MAY_BE_ZERO = {"compile_s", "init_s", "init_compile_s", "init_materialize_s",
+                     "platform_first_op_s", "init_build_s", "init_head_s"}
 GATE_KERNELS = {"sampler kernel OFF": "sample_slow", "fast-decoder kernel OFF": "fast_decode_frame",
                 "slow-stack kernel OFF": "slow_stack_step"}
 
@@ -1129,6 +1155,51 @@ def check_report(rep: dict, label: str) -> str:
             f"{rep['peak_memory_gb']} GB")
 
 
+def check_bench(line: dict, argv) -> str:
+    """The bench's JSON line at ``argv``: exactly the keys its stages give
+    (no fallback or failure key), the card's ``nvidia-smi`` line as its
+    device, every number finite and positive (a first-use cost finite and
+    not negative), ``rtf`` x ``value`` = 44 100 / 2048 x ``batch`` within
+    the rounding of the two (``rtf`` to 4 decimals, ``value`` to 1), the
+    frames timed and the serving slots at the bench's settings, and the
+    precision asked for."""
+    from fish_tts_tpu_torch.scripts import bench
+
+    label = f"bench {' '.join(argv)}".strip()
+    want = set(BENCH_DECODE_KEYS)
+    agg = int(argv[argv.index("--aggregate-batch") + 1]) if "--aggregate-batch" in argv else 8
+    if agg > 1:
+        want |= {f"aggregate_tok_per_sec_b{b}" for b in ({agg, 16} if agg == 8 else {agg})}
+    if "--no-ttfa" not in argv:
+        want |= BENCH_USER_KEYS
+    if set(line) != want:
+        fail(f"tools: {label}: missing keys {sorted(want - set(line))}, extra keys "
+             f"{sorted(set(line) - want)}")
+    if line["device"] != card_line():
+        fail(f"tools: {label}: device {line['device']!r}, want {card_line()!r}")
+    for key, v in line.items():
+        if isinstance(v, str):
+            continue
+        values = v if isinstance(v, list) else [v]
+        zero_ok = key in BENCH_MAY_BE_ZERO
+        if not values or not all(type(x) in (int, float) and math.isfinite(x)
+                                 and (x >= 0 if zero_ok else x > 0) for x in values):
+            fail(f"tools: {label}: {key} = {v}")
+    product, want_product = line["rtf"] * line["value"], bench.AUDIO_TOKENS_PER_SEC * line["batch"]
+    if abs(product - want_product) > 5e-5 * line["value"] + 0.05 * line["rtf"] + 1e-9:
+        fail(f"tools: {label}: rtf {line['rtf']} x value {line['value']} = {product}, want "
+             f"{want_product}")
+    frames = int(argv[argv.index("--frames") + 1]) if "--frames" in argv else 200
+    if line["frames_timed"] != frames // bench.CHUNK * bench.CHUNK:
+        fail(f"tools: {label}: frames_timed {line['frames_timed']}, want {frames}")
+    if "serve_slots" in want and line["serve_slots"] != 16:
+        fail(f"tools: {label}: serve_slots {line['serve_slots']}, want 16")
+    precision = "bf16" if "--bf16" in argv else "int8"
+    if line["precision"] != precision:
+        fail(f"tools: {label}: precision {line['precision']}, want {precision}")
+    return ", ".join(f"{k} {line[k]}" for k in sorted(line) if k not in ("metric", "unit"))
+
+
 def check_rows(name: str, records) -> None:
     """Every measured row of a profiler finite and positive; a serving
     phase's device span finite and not negative (a phase that enqueues
@@ -1159,6 +1230,7 @@ def phase_tools() -> None:
     for name, argv in TOOLS:
         mod = importlib.import_module(f"fish_tts_tpu_torch.scripts.{name}")
         t = time.perf_counter()
+        before = kernel_counts()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             got = mod.main(list(argv))
@@ -1186,6 +1258,12 @@ def phase_tools() -> None:
         elif name == "benchmark":
             rep = json.loads(text.strip().splitlines()[-1])
             note = check_report(rep, f"benchmark {argv[argv.index('--precision') + 1]}")
+        elif name == "bench":
+            if json.loads(text.strip().splitlines()[-1]) != got:
+                fail(f"tools: bench {' '.join(argv)}: its last line is not the line it returned")
+            added = {k: n - before[k] for k, n in kernel_counts().items()}
+            note = f"{check_bench(got, argv)}; kernel launches {json.dumps(added)}"
+            check_bench_launches(added, argv)
         else:
             check_rows(name, got)
             note = f"{len(got)} rows"
@@ -1197,6 +1275,17 @@ def phase_tools() -> None:
     tally("tools", launches)
     print(f"tools: {len(TOOLS)} runs in {time.perf_counter() - t_phase:.1f} s; kernel launches "
           f"{json.dumps(launches)}", flush=True)
+
+
+def check_bench_launches(added: dict[str, int], argv) -> None:
+    """The launches of one bench run at ``argv``: at int8 the three kernels of
+    the tied-head route (``"value"`` fast decoder) each launch and no other;
+    at bf16 only the sampler launches."""
+    on = (("sample_slow",) if "--bf16" in argv
+          else ("sample_slow", "slow_stack_step", "fast_decode_frame"))
+    if not all(added[k] > 0 for k in on) or any(n for k, n in added.items() if k not in on):
+        label = f"bench {' '.join(argv)}".strip()
+        fail(f"tools: {label}: kernel launches {added}, want each of {on} and no other")
 
 
 # --- phase 4: the decode graph against the eager loop ---------------------------
