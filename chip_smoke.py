@@ -1201,17 +1201,13 @@ def check_bench(line: dict, argv) -> str:
 
 
 def check_rows(name: str, records) -> None:
-    """Every measured row of a profiler finite and positive; a serving
-    phase's device span finite and not negative (a phase that enqueues
-    nothing spans ~0 ms of the stream)."""
+    """Every measured row of a profiler finite and positive."""
     for rec in records:
         if rec.get("derived"):
             continue  # a remainder computed from the other rows
         values = [rec[k] for k in ("value", "host_s", "frames_per_s") if k in rec]
-        span = rec.get("device_ms_per_round")
-        if (not values or not all(math.isfinite(v) and v > 0 for v in values)
-                or (span is not None and not (math.isfinite(span) and span >= 0))):
-            fail(f"tools: {name} row {rec.get('label')!r}: {values}, device span {span}")
+        if not values or not all(math.isfinite(v) and v > 0 for v in values):
+            fail(f"tools: {name} row {rec.get('label')!r}: {values}")
 
 
 def phase_tools() -> None:
@@ -2929,18 +2925,20 @@ def phase_serve(tts, name: str) -> None:
     label = f"serve {name} slots={slots}"
     t_phase = time.perf_counter()
     t = time.perf_counter()
+    before = tts.get_metrics()["phases"].get("graph.capture", {"count": 0, "total_s": 0.0})
     sess = tts.serve(slots=slots, warmup=True)
     torch.cuda.synchronize()
     srv = sess._srv
+    after = tts.get_metrics()["phases"].get("graph.capture", {"count": 0, "total_s": 0.0})
     print(f"{label}: session built and warmed up in {time.perf_counter() - t:.1f} s "
-          f"({srv.graph_captures} graph(s) captured in {srv.capture_s:.2f} s)", flush=True)
+          f"({after['count'] - before['count']} graph(s) captured in "
+          f"{after['total_s'] - before['total_s']:.2f} s, the graph.capture span)", flush=True)
     reqs = serve_requests(n, budgets, reference_profile(tts._cfg))
     cancel = SERVE_CANCEL
     rec = ServeRecorder(sess)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     allocs0 = len(srv.allocs)
-    srv._done_stats.clear()  # stats() of the waved requests, not the warm-up's
     try:
         ids, events, wall, first, cancelled_at = drive_serve(sess, reqs, waves, cancel)
         torch.cuda.synchronize()

@@ -44,7 +44,13 @@ mesh and every cache is allocated at the full context, never resized; decode
 runs the eager loop (a frame spans devices, so no graph is captured).
 ``metrics`` times
 the host-visible fetch of each chunk ("prefill" for the first, "decode"
-after) and counts the tokens, as the JAX engine does.
+after) and counts the tokens, as the JAX engine does.  A ``generate_long``
+sample also records, under a per-call id, the spans ``engine.prompt``
+(encode and pad), ``engine.prefill.launch`` (the state, the prefill and the
+first chunk's launch) and ``engine.decode.launch`` (each later chunk), and
+the request span ``engine.first_frames``, from the call's start to the host
+holding its first frames; a decode graph's capture is a ``graph.capture``
+span.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from fish_tts_tpu_torch.models.prompt import ContentSequence, TextPart, VQPart, 
 from fish_tts_tpu_torch.models.tokenizer import FishTokenizer
 from fish_tts_tpu_torch.parallel import sharding
 from fish_tts_tpu_torch.parallel.mesh import make_mesh
+from fish_tts_tpu_torch.utils import profiling
 from fish_tts_tpu_torch.utils.profiling import Metrics
 
 logger = logging.getLogger(__name__)
@@ -207,6 +214,7 @@ class GenerationEngine:
         self._seeds = np.random.default_rng(seed)
         self._seeds_lock = threading.Lock()
         self.metrics = Metrics()
+        self._calls = itertools.count()  # the ids of generate_long's samples
         self._states: dict[tuple, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
         # The reference-voice prefix: (state, generation, length in tokens),
@@ -356,9 +364,10 @@ class GenerationEngine:
                decode_mod.route(self.cfg, self.params, B, W, **self._options))
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = decode_mod.DecodeGraph(
-                self.params, self.cfg, self.ids, self.rope, state, kv_bucket=kv_bucket,
-                skip_done=skip_done, capacity=self._large_chunk, **self._options)
+            with self.metrics.span("graph.capture"):
+                graph = self._graphs[key] = decode_mod.DecodeGraph(
+                    self.params, self.cfg, self.ids, self.rope, state, kv_bucket=kv_bucket,
+                    skip_done=skip_done, capacity=self._large_chunk, **self._options)
         return graph.run(num_frames)
 
     def _pad_prompt(self, values: np.ndarray) -> tuple[np.ndarray, int]:
@@ -410,54 +419,58 @@ class GenerationEngine:
                       streaming: bool, use_prefix_cache: bool, show_progress: bool,
                       noise) -> Iterator[GenerateResponse]:
         """One sample of ``generate_long``, without the trailing "next"."""
+        t_call, rid = profiling.now(), next(self._calls)
         cfg, ecfg, ids = self.cfg, self.engine_cfg, self.ids
         max_length = cfg.max_seq_len
-        # one snapshot: a later set_prefix/clear_prefix does not change what
-        # this call forks
-        prefix, _, snap_len = self._prefix_snapshot()
-        use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
-        if use_cached_prefix:
-            enc = self._encode_suffix(text)
-            prefix_len = snap_len
-            prompt_len = prefix_len + enc.values.shape[1]
-        else:
-            enc = build_prompt(self.tokenizer, text, cfg.num_codebooks,
-                               prompt_texts=prompt_text, prompt_codes=prompt_tokens)
-            prefix_len, prompt_len = 0, enc.values.shape[1]
-        reserve = min(2048, max_length // 2)
-        if prompt_len > max_length - reserve:
-            raise ValueError(f"Prompt is too long: {prompt_len} > {max_length - reserve}")
-        max_new = max_length - prompt_len
-        if max_new_tokens:
-            max_new = min(max_new_tokens, max_new)
+        with self.metrics.span("engine.prompt", rid=rid):
+            # one snapshot: a later set_prefix/clear_prefix does not change what
+            # this call forks
+            prefix, _, snap_len = self._prefix_snapshot()
+            use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
+            if use_cached_prefix:
+                enc = self._encode_suffix(text)
+                prefix_len = snap_len
+                prompt_len = prefix_len + enc.values.shape[1]
+            else:
+                enc = build_prompt(self.tokenizer, text, cfg.num_codebooks,
+                                   prompt_texts=prompt_text, prompt_codes=prompt_tokens)
+                prefix_len, prompt_len = 0, enc.values.shape[1]
+            reserve = min(2048, max_length // 2)
+            if prompt_len > max_length - reserve:
+                raise ValueError(f"Prompt is too long: {prompt_len} > {max_length - reserve}")
+            max_new = max_length - prompt_len
+            if max_new_tokens:
+                max_new = min(max_new_tokens, max_new)
 
-        padded, T = self._pad_prompt(enc.values)
-        # the worst-case decode extent, and never below the padded prefill's
-        # write extent
-        alloc = self._alloc_rows(max(prompt_len + max_new + 2 * self._large_chunk,
-                                     prefix_len + padded.shape[-1] + 1))
-        state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
-                 else self._fresh_state(1, alloc))
+            padded, T = self._pad_prompt(enc.values)
+            # the worst-case decode extent, and never below the padded prefill's
+            # write extent
+            alloc = self._alloc_rows(max(prompt_len + max_new + 2 * self._large_chunk,
+                                         prefix_len + padded.shape[-1] + 1))
         sampling = (temperature, top_p, repetition_penalty)
 
         # prefill (it loads the sampling parameters and noise keys into the
         # state) + the first chunk, straight-line; n0 == 0 when the prefill
         # frame fills the budget
         n0 = max(0, min(ecfg.first_chunk - 1, ecfg.decode_chunk, max_new - 1))
-        kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
-        _, first = decode_mod.prefill(
-            self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
-            torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
-            cfg=cfg, ids=ids, kv_bucket=kv_pre, **self._options)
-        frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
-                                                      device=self.device)
-        if n0:
-            f1, e1 = self._decode(state, noise, sampling, n0, min(alloc, _kv_bucket(
-                prompt_len + n0, ecfg.kv_bucket_step, max_length)), early_exit=False)
-            frames, emitted = torch.cat([frames, f1], dim=1), torch.cat([emitted, e1], dim=1)
+        with self.metrics.span("engine.prefill.launch", kind="launch", rid=rid):
+            state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
+                     else self._fresh_state(1, alloc))
+            kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
+            _, first = decode_mod.prefill(
+                self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
+                torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
+                cfg=cfg, ids=ids, kv_bucket=kv_pre, **self._options)
+            frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
+                                                          device=self.device)
+            if n0:
+                f1, e1 = self._decode(state, noise, sampling, n0, min(alloc, _kv_bucket(
+                    prompt_len + n0, ecfg.kv_bucket_step, max_length)), early_exit=False)
+                frames, emitted = (torch.cat([frames, f1], dim=1),
+                                   torch.cat([emitted, e1], dim=1))
+            pending = (*start_fetch(frames, emitted), True)
 
         dispatched = 1 + n0
-        pending = (*start_fetch(frames, emitted), True)
         produced = 0
         collected: list[np.ndarray] = []
         # streaming keeps small chunks, each a vocoder input; otherwise as
@@ -469,16 +482,19 @@ class GenerationEngine:
             if dispatched < max_new:
                 # launch the next chunk before reading this one back
                 n = _chunk_len(max_new - dispatched, chunk, ecfg.decode_chunk)
-                f2, e2 = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
-                    prompt_len + dispatched + n, ecfg.kv_bucket_step, max_length)),
-                    early_exit=not streaming)
-                nxt = (*start_fetch(f2, e2), False)
+                with self.metrics.span("engine.decode.launch", kind="launch", rid=rid):
+                    f2, e2 = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
+                        prompt_len + dispatched + n, ecfg.kv_bucket_step, max_length)),
+                        early_exit=not streaming)
+                    nxt = (*start_fetch(f2, e2), False)
                 dispatched += n
-            with self.metrics.span("prefill" if is_first else "decode"):
+            with self.metrics.span("prefill" if is_first else "decode", kind="wait", rid=rid):
                 if copied is not None:
                     copied.synchronize()
                 frames_np = frames_host.numpy()  # (1, m, 1+K)
                 emitted_np = emitted_host.numpy()[0]
+            if is_first:
+                self.metrics.record("engine.first_frames", t_call, profiling.now(), rid=rid)
             done = bool((not emitted_np[-1]) or frames_np[0, -1, 0] == ids.im_end)
             self.metrics.record_tokens(int(min(emitted_np.sum(), max_new - produced)))
             if show_progress and not is_first:
@@ -648,7 +664,7 @@ class GenerationEngine:
                  else self._fresh_state(B, alloc))
         kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
         firsts, r0 = [], 0
-        with self.metrics.span("prefill"):
+        with self.metrics.span("prefill", kind="launch"):
             for bucket, idxs in groups:
                 padded = np.zeros((len(idxs), 1 + cfg.num_codebooks, bucket), np.int32)
                 for row, i in enumerate(idxs):
@@ -703,7 +719,7 @@ class GenerationEngine:
                 break
             if pending is not None:
                 f_host, e_host, copied, n_disp = pending
-                with self.metrics.span("decode"):
+                with self.metrics.span("decode", kind="wait"):
                     if copied is not None:
                         copied.synchronize()
                     f_np, e_np = f_host.numpy(), e_host.numpy()

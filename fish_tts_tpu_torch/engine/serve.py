@@ -33,11 +33,18 @@ the running decode between chunks, without disturbing the other slots.
 - The allocation follows the live streams (``_pool_resize``: powers of two
   from ``CACHE_FLOOR``), and the read window steps by ``kv_bucket_step``
   rows; each (allocation, window) pair is one captured graph, made the
-  first time it is met.  ``graph_captures``/``capture_s``/``allocs`` count
-  them.
+  first time it is met (a ``graph.capture`` span each); ``allocs`` lists
+  the allocations.
 - Chunk k + 1 is launched before chunk k is read back, and an admission's
   first frame stays on the device until the request's first chunk is read.
   No launch path of a round reads a device tensor back.
+
+Spans (``utils/profiling.py``, on the engine's registry): ``serve.prepare``
+per request; per round ``serve.admit`` per admitted request (a launch),
+``serve.lm.launch`` (the chunk's launches), ``serve.lm.wait`` (each read of
+a chunk or a first frame); the request span ``serve.queue``, from submission
+to the start of the admitting round's admission.  :meth:`stats` reports over
+the last ``STATS_WINDOW_S`` seconds on the spans' clock.
 
 On the CPU each chunk runs the eager loop; a request may then carry a host
 noise source of its own (``prepare(noise=)``), called as ``noise(0, step,
@@ -72,8 +79,11 @@ from fish_tts_tpu_torch.engine import decode as decode_mod
 from fish_tts_tpu_torch.engine.generate import (GenerationEngine, _cache_bucket, _kv_bucket,
                                                 _pick_bucket, start_fetch, to_device_async)
 from fish_tts_tpu_torch.models.prompt import build_prompt
+from fish_tts_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
+
+STATS_WINDOW_S = 60.0  # the seconds ``ContinuousBatcher.stats`` reports over
 
 
 class QueueFull(RuntimeError):
@@ -108,6 +118,7 @@ class _Request:
     prefix_gen: int = 0  # engine prefix generation at prepare() time
     priority: int = 0  # higher admits first (FIFO within a priority)
     deadline: float = 0.0  # time.monotonic() deadline; 0 = none
+    # on profiling.now(), the spans' clock
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0  # first frames delivered to the consumer
@@ -140,8 +151,12 @@ class ContinuousBatcher:
         self._lock = threading.Lock()
         self._queue: deque[_Request] = deque()
         self._cancelled: set[int] = set()
-        self._done_stats: deque[dict] = deque(maxlen=1024)
-        self._n_expired = 0
+        # stats() samples on profiling.now(), kept for STATS_WINDOW_S:
+        # (time, queue wait s), (time, time to first frames s) and
+        # (time, frames, seconds from submission, expired)
+        self._waits: deque[tuple] = deque()
+        self._firsts: deque[tuple] = deque()
+        self._dones: deque[tuple] = deque()
         self._ids = itertools.count()
         self._slot_req: list[_Request | None] = [None] * slots
         dev = engine.device
@@ -151,8 +166,6 @@ class ContinuousBatcher:
         self._states: dict[int, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
         self._scratch: dict[int, decode_mod.State] = {}
-        self.graph_captures = 0
-        self.capture_s = 0.0
         self._state = self._fresh_pool()
         self.allocs = [self._alloc]  # the allocations the pool went through
         # slots retired at dispatch (predictive budget retirement): the
@@ -249,48 +262,51 @@ class ContinuousBatcher:
           ``noise(0, step, draws)`` (CPU only).
 
         Raises ``QueueFull`` at once when the queue is at ``max_queue``."""
-        temperature, top_p = float(temperature), float(top_p)
-        repetition_penalty = float(repetition_penalty)
-        priority, timeout_s = int(priority), float(timeout_s)
-        max_new_tokens = int(max_new_tokens)
-        if not (0 < top_p <= 1 and 0 < repetition_penalty < 2 and 0 < temperature < 2):
-            raise ValueError("sampling params out of range: need 0 < top_p <= 1, "
-                             "0 < repetition_penalty < 2, 0 < temperature < 2")
-        if max_new_tokens < 0:
-            raise ValueError("max_new_tokens must be >= 0 (0 = unlimited)")
-        eng = self.engine
-        if noise is not None and eng.device.type == "cuda":
-            raise TypeError("a host noise source runs only on the CPU: on a CUDA device the "
-                            "noise is drawn inside the decode graph")
-        with self._lock:
-            self._check_queue_bound()
-        source = eng._next_noise() if seed is None else eng._seed_noise(seed)
-        has_refs = bool(prompt_text) or bool(prompt_tokens)
-        # one consistent snapshot; admission re-checks the generation
-        prefix_state, prefix_gen, prefix_len = eng._prefix_snapshot()
-        if has_refs and prefix_state is not None:
-            raise ValueError("per-request references cannot be combined with a session-level "
-                             "cached prefix (engine.set_prefix); clear the prefix or drop the "
-                             "per-request references")
-        if prefix_state is not None:
-            enc = eng._encode_suffix(text)
-        else:
-            enc = build_prompt(eng.tokenizer, text, eng.cfg.num_codebooks,
-                               prompt_texts=prompt_text or [], prompt_codes=prompt_tokens or [])
-        prompt_len = prefix_len + enc.values.shape[1]
-        cfg = eng.cfg
-        reserve = min(2048, cfg.max_seq_len // 2)
-        if prompt_len > cfg.max_seq_len - reserve:
-            raise ValueError(f"Prompt is too long: {prompt_len}")
-        max_new = (min(max_new_tokens, cfg.max_seq_len - prompt_len) if max_new_tokens
-                   else cfg.max_seq_len - prompt_len)
-        now = time.monotonic()
-        return _Request(
-            id=next(self._ids), values=enc.values, max_new=max_new, temperature=temperature,
-            top_p=top_p, repetition_penalty=repetition_penalty,
-            key=source.slot_keys([0])[0], noise=noise,
-            prompt_len=prompt_len, prefix_len=prefix_len, prefix_gen=prefix_gen,
-            t_submit=now, priority=priority, deadline=(now + timeout_s) if timeout_s else 0.0)
+        with self.engine.metrics.span("serve.prepare") as sp:
+            temperature, top_p = float(temperature), float(top_p)
+            repetition_penalty = float(repetition_penalty)
+            priority, timeout_s = int(priority), float(timeout_s)
+            max_new_tokens = int(max_new_tokens)
+            if not (0 < top_p <= 1 and 0 < repetition_penalty < 2 and 0 < temperature < 2):
+                raise ValueError("sampling params out of range: need 0 < top_p <= 1, "
+                                 "0 < repetition_penalty < 2, 0 < temperature < 2")
+            if max_new_tokens < 0:
+                raise ValueError("max_new_tokens must be >= 0 (0 = unlimited)")
+            eng = self.engine
+            if noise is not None and eng.device.type == "cuda":
+                raise TypeError("a host noise source runs only on the CPU: on a CUDA device the "
+                                "noise is drawn inside the decode graph")
+            with self._lock:
+                self._check_queue_bound()
+            source = eng._next_noise() if seed is None else eng._seed_noise(seed)
+            has_refs = bool(prompt_text) or bool(prompt_tokens)
+            # one consistent snapshot; admission re-checks the generation
+            prefix_state, prefix_gen, prefix_len = eng._prefix_snapshot()
+            if has_refs and prefix_state is not None:
+                raise ValueError("per-request references cannot be combined with a session-level "
+                                 "cached prefix (engine.set_prefix); clear the prefix or drop the "
+                                 "per-request references")
+            if prefix_state is not None:
+                enc = eng._encode_suffix(text)
+            else:
+                enc = build_prompt(eng.tokenizer, text, eng.cfg.num_codebooks,
+                                   prompt_texts=prompt_text or [], prompt_codes=prompt_tokens or [])
+            prompt_len = prefix_len + enc.values.shape[1]
+            cfg = eng.cfg
+            reserve = min(2048, cfg.max_seq_len // 2)
+            if prompt_len > cfg.max_seq_len - reserve:
+                raise ValueError(f"Prompt is too long: {prompt_len}")
+            max_new = (min(max_new_tokens, cfg.max_seq_len - prompt_len) if max_new_tokens
+                       else cfg.max_seq_len - prompt_len)
+            req = _Request(
+                id=next(self._ids), values=enc.values, max_new=max_new, temperature=temperature,
+                top_p=top_p, repetition_penalty=repetition_penalty,
+                key=source.slot_keys([0])[0], noise=noise,
+                prompt_len=prompt_len, prefix_len=prefix_len, prefix_gen=prefix_gen,
+                t_submit=profiling.now(), priority=priority,
+                deadline=(time.monotonic() + timeout_s) if timeout_s else 0.0)
+            sp.rid = req.id
+        return req
 
     def _check_queue_bound(self) -> None:
         """Raise ``QueueFull`` at the bound.  The caller holds ``_lock``."""
@@ -345,10 +361,12 @@ class ContinuousBatcher:
         another prefix generation than the one now held, and the slots
         they briefly held, which get no state and must be marked dirty again
         by the caller."""
-        now = time.monotonic()
+        now = profiling.now()
+        eng = self.engine
         for req in reqs:
             req.t_admit = now
-        eng = self.engine
+            eng.metrics.record("serve.queue", req.t_submit, now, rid=req.id)
+            self._sample(self._waits, (now, now - req.t_submit))
         cfg, ecfg = eng.cfg, eng.engine_cfg
         prefix, prefix_gen, prefix_len = eng._prefix_snapshot()
         kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
@@ -372,32 +390,34 @@ class ContinuousBatcher:
         cap = cfg.max_seq_len - 1
         # the install writes [:rows] of every admitted slot: grow first
         # (live streams may reach further, so never shrink here)
-        self._pool_resize(_kv_bucket(max(r.prompt_len for r in reqs), ecfg.kv_bucket_step,
-                                     cfg.max_seq_len) + 1, grow_only=True)
+        with eng.metrics.span("serve.lm.launch", kind="launch"):
+            self._pool_resize(_kv_bucket(max(r.prompt_len for r in reqs), ecfg.kv_bucket_step,
+                                         cfg.max_seq_len) + 1, grow_only=True)
         dev = eng.device
         for slot, req in zip(slot_ids, reqs):
-            # each request alone at its own bucket, as its solo run prefills
-            bucket = _pick_bucket(ecfg.prompt_buckets, req.prompt_len - prefix_len, cap)
-            rows = _kv_bucket(req.prompt_len, ecfg.kv_bucket_step, cfg.max_seq_len)
-            # the scratch covers the whole padded write extent
-            scratch = self._scratch_state(
-                _kv_bucket(kv_pre + bucket + 1, ecfg.kv_bucket_step, cfg.max_seq_len))
-            if prefix is not None:
-                # prefill continues at the prefix's true length, reading
-                # kv_pre rows
-                eng._fork_into(prefix, scratch)
-            padded = np.zeros((1, 1 + cfg.num_codebooks, bucket), np.int32)
-            padded[0, :, :req.values.shape[1]] = req.values
-            noise = (decode_mod.KeyedNoise([req.key]) if req.noise is None
-                     else _RowNoise([req], cfg))
-            _, first = decode_mod.prefill(
-                eng.params, eng.rope, scratch, to_device_async(padded, dev),
-                to_device_async(np.array([req.values.shape[1]], np.int32), dev), noise,
-                req.temperature, req.top_p, req.repetition_penalty, cfg=cfg, ids=eng.ids,
-                kv_bucket=kv_pre, **eng._options)
-            self._install(scratch, slot, rows)
-            self._slot_req[slot] = req
-            req.first_dev = start_fetch(first)
+            with eng.metrics.span("serve.admit", kind="launch", rid=req.id):
+                # each request alone at its own bucket, as its solo run prefills
+                bucket = _pick_bucket(ecfg.prompt_buckets, req.prompt_len - prefix_len, cap)
+                rows = _kv_bucket(req.prompt_len, ecfg.kv_bucket_step, cfg.max_seq_len)
+                # the scratch covers the whole padded write extent
+                scratch = self._scratch_state(
+                    _kv_bucket(kv_pre + bucket + 1, ecfg.kv_bucket_step, cfg.max_seq_len))
+                if prefix is not None:
+                    # prefill continues at the prefix's true length, reading
+                    # kv_pre rows
+                    eng._fork_into(prefix, scratch)
+                padded = np.zeros((1, 1 + cfg.num_codebooks, bucket), np.int32)
+                padded[0, :, :req.values.shape[1]] = req.values
+                noise = (decode_mod.KeyedNoise([req.key]) if req.noise is None
+                         else _RowNoise([req], cfg))
+                _, first = decode_mod.prefill(
+                    eng.params, eng.rope, scratch, to_device_async(padded, dev),
+                    to_device_async(np.array([req.values.shape[1]], np.int32), dev), noise,
+                    req.temperature, req.top_p, req.repetition_penalty, cfg=cfg, ids=eng.ids,
+                    kv_bucket=kv_pre, **eng._options)
+                self._install(scratch, slot, rows)
+                self._slot_req[slot] = req
+                req.first_dev = start_fetch(first)
         return rejected, rejected_slots
 
     @torch.no_grad()
@@ -437,12 +457,10 @@ class ContinuousBatcher:
         key = (self._alloc, kv_b)
         graph = self._graphs.get(key)
         if graph is None:
-            t = time.perf_counter()
-            graph = self._graphs[key] = decode_mod.DecodeGraph(
-                eng.params, eng.cfg, eng.ids, eng.rope, state, kv_bucket=kv_b,
-                skip_done=True, capacity=self.chunk, **eng._options)
-            self.graph_captures += 1
-            self.capture_s += time.perf_counter() - t
+            with eng.metrics.span("graph.capture"):
+                graph = self._graphs[key] = decode_mod.DecodeGraph(
+                    eng.params, eng.cfg, eng.ids, eng.rope, state, kv_bucket=kv_b,
+                    skip_done=True, capacity=self.chunk, **eng._options)
         return graph.run(self.chunk)
 
     def step(self) -> list[Event]:
@@ -473,8 +491,7 @@ class ContinuousBatcher:
             # in the stats like any completion
             for req in expired:
                 req.finished = True
-                self._record_done(req)
-                self._n_expired += 1
+                self._record_done(req, expired=True)
                 events.append(Event(req.id, np.zeros((K, 0), np.int64), True, req.produced, -1))
         self._apply_cancels()
         with self._lock:
@@ -507,31 +524,30 @@ class ContinuousBatcher:
                     self._record_done(req)
                     events.append(Event(req.id, np.zeros((K, 0), np.int64), True,
                                         req.produced, -1))
-        if self._dirty:
-            # retired slots no successor claimed, ordered after their final chunk
-            self._mark_done(self._dirty)
-            self._dirty.clear()
-
-        live = [i for i, r in enumerate(self._slot_req) if r is not None]
         nxt = None
-        if live:
-            cfg, ecfg = self.engine.cfg, self.engine.engine_cfg
-            # the read bound: the longest live context after this chunk, plus
-            # one chunk, since results land one round late
-            need = max(self._slot_req[i].prompt_len + self._slot_req[i].produced + self.chunk
-                       for i in live) + self.chunk
-            kv_b = _kv_bucket(need, ecfg.kv_bucket_step, cfg.max_seq_len)
-            self._pool_resize(need)
-            kv_b = min(kv_b, self._alloc)
-            frames, emitted = self._decode(kv_b)
-            nxt = (*start_fetch(frames, emitted), dict(enumerate(self._slot_req)))
-            for i in live:  # predictive retirement, after the snapshot
-                req = self._slot_req[i]
-                req.dispatched += self.chunk
-                if req.dispatched >= req.max_new:
-                    self._slot_req[i] = None
-                    self._dirty.add(i)
-
+        with self.engine.metrics.span("serve.lm.launch", kind="launch"):
+            if self._dirty:
+                # retired slots no successor claimed, ordered after their final chunk
+                self._mark_done(self._dirty)
+                self._dirty.clear()
+            live = [i for i, r in enumerate(self._slot_req) if r is not None]
+            if live:
+                cfg, ecfg = self.engine.cfg, self.engine.engine_cfg
+                # the read bound: the longest live context after this chunk, plus
+                # one chunk, since results land one round late
+                need = max(self._slot_req[i].prompt_len + self._slot_req[i].produced
+                           + self.chunk for i in live) + self.chunk
+                kv_b = _kv_bucket(need, ecfg.kv_bucket_step, cfg.max_seq_len)
+                self._pool_resize(need)
+                kv_b = min(kv_b, self._alloc)
+                frames, emitted = self._decode(kv_b)
+                nxt = (*start_fetch(frames, emitted), dict(enumerate(self._slot_req)))
+                for i in live:  # predictive retirement, after the snapshot
+                    req = self._slot_req[i]
+                    req.dispatched += self.chunk
+                    if req.dispatched >= req.max_new:
+                        self._slot_req[i] = None
+                        self._dirty.add(i)
         if self._pending is not None:
             events += self._process(*self._pending)
         self._pending = nxt
@@ -541,9 +557,10 @@ class ContinuousBatcher:
         """Read one chunk back and route its frames to the requests that held
         each slot when it was dispatched."""
         eng = self.engine
-        if copied is not None:
-            copied.synchronize()
-        frames_np, emitted_np = frames_host.numpy(), emitted_host.numpy()
+        with eng.metrics.span("serve.lm.wait", kind="wait"):
+            if copied is not None:
+                copied.synchronize()
+            frames_np, emitted_np = frames_host.numpy(), emitted_host.numpy()
         events: list[Event] = []
         budget_done: list[int] = []
         n_tokens = 0
@@ -555,12 +572,15 @@ class ContinuousBatcher:
             if req.first_dev is not None:
                 # the admission's prefill frame rides this read
                 host, first_copied = req.first_dev
-                if first_copied is not None:
-                    first_copied.synchronize()
+                with eng.metrics.span("serve.lm.wait", kind="wait", rid=req.id):
+                    if first_copied is not None:
+                        first_copied.synchronize()
+                    first_np = host.numpy()
                 req.first_dev = None
-                fs = np.concatenate([host.numpy(), fs], axis=0)
+                fs = np.concatenate([first_np, fs], axis=0)
             if fs.shape[0] and not req.t_first:
-                req.t_first = time.monotonic()
+                req.t_first = profiling.now()
+                self._sample(self._firsts, (req.t_first, req.t_first - req.t_submit))
             fs = fs[:req.max_new - req.produced]
             n_tokens += fs.shape[0]
             req.produced += fs.shape[0]
@@ -606,35 +626,47 @@ class ContinuousBatcher:
         logger.warning("serve: pool state rebuilt after step failure (%d request(s) dropped)",
                        len(dropped))
 
-    def _record_done(self, req: _Request) -> None:
-        now = time.monotonic()
-        self._done_stats.append({
-            "request_id": req.id,
-            "frames": req.produced,
-            "queue_wait_s": (req.t_admit or now) - req.t_submit,
-            # consumer-visible time to first frames (queue wait included)
-            "ttft_s": (req.t_first or now) - req.t_submit,
-            "total_s": now - req.t_submit,
-        })
+    def _record_done(self, req: _Request, expired: bool = False) -> None:
+        now = profiling.now()
+        self._sample(self._dones, (now, req.produced, now - req.t_submit, expired))
+
+    def _sample(self, samples: deque, sample: tuple) -> None:
+        """Add a stats sample (its time first) and drop those older than
+        the window."""
+        with self._lock:
+            samples.append(sample)
+            while samples[0][0] < sample[0] - STATS_WINDOW_S:
+                samples.popleft()
+
+    def clear_stats(self) -> None:
+        """Forget every stats sample (a warm-up's)."""
+        with self._lock:
+            for samples in (self._waits, self._firsts, self._dones):
+                samples.clear()
 
     def stats(self) -> dict:
-        """Serving stats over the last completed requests (window of 1024):
-        p50/p95 queue wait and time to first frames, mean per-request frame
-        rate, queue depth and live slots.  Host bookkeeping only."""
+        """Serving stats over the last ``STATS_WINDOW_S`` seconds: requests
+        completed and expired; p50/p95 of the queue wait (the ``serve.queue``
+        spans of the requests admitted) and of the time from submission to
+        the first frames (at their arrival, so requests in flight count);
+        frames over seconds from submission, over the completed requests;
+        queue depth and live slots now.  Host bookkeeping only."""
+        since = profiling.now() - STATS_WINDOW_S
         with self._lock:
             depth = len(self._queue)
-        recs = list(self._done_stats)
-        out = {"completed": len(recs), "expired": self._n_expired, "queue_depth": depth,
-               "live_slots": sum(r is not None for r in self._slot_req), "slots": self.slots}
-        if recs:
-            qw = np.sort([r["queue_wait_s"] for r in recs])
-            tf = np.sort([r["ttft_s"] for r in recs])
-            out["queue_wait_p50_s"] = float(np.percentile(qw, 50))
-            out["queue_wait_p95_s"] = float(np.percentile(qw, 95))
-            out["ttft_p50_s"] = float(np.percentile(tf, 50))
-            out["ttft_p95_s"] = float(np.percentile(tf, 95))
-            tot = sum(r["total_s"] for r in recs)
-            out["frames_per_request_s"] = sum(r["frames"] for r in recs) / tot if tot else 0.0
+            waits, firsts, dones = ([s for s in samples if s[0] >= since]
+                                    for samples in (self._waits, self._firsts, self._dones))
+        out = {"completed": len(dones), "expired": sum(1 for d in dones if d[3]),
+               "queue_depth": depth, "live_slots": sum(r is not None for r in self._slot_req),
+               "slots": self.slots}
+        for key, samples in (("queue_wait", waits), ("ttft", firsts)):
+            if samples:
+                vals = np.sort([s[1] for s in samples])
+                out[f"{key}_p50_s"] = float(np.percentile(vals, 50))
+                out[f"{key}_p95_s"] = float(np.percentile(vals, 95))
+        if dones:
+            tot = sum(d[2] for d in dones)
+            out["frames_per_request_s"] = sum(d[1] for d in dones) / tot if tot else 0.0
         return out
 
     @property

@@ -25,6 +25,11 @@ Entry points run on the card unless the caller asks for ``device="cpu"``;
 Streaming pipelines the LM and the codec in CUDA stream order, with no
 thread: a chunk's codec decode is enqueued, its copy to the host started,
 and it is read back only after the next LM chunk has been requested.
+
+Spans (``utils/profiling.py``, on the engine's registry): each serving
+round is a ``serve.round``, its pool codec call a ``serve.codec.launch``;
+each flush of a stream a ``stream.codec.launch``; each read of decoded
+audio a ``vocoder`` wait.
 """
 
 from __future__ import annotations
@@ -427,7 +432,7 @@ class FishTTS:
             def emit(handles):
                 entries = [h for h in handles if h is not None]
                 pcm, copied = pool.decode_round(entries)
-                with self._engine.metrics.span("vocoder"):
+                with self._engine.metrics.span("vocoder", kind="wait"):
                     if copied is not None:
                         copied.synchronize()
                     pcm = pcm.numpy()  # (B, 1, samples) int16, one fetch
@@ -539,7 +544,8 @@ class FishTTS:
                 collected.append(response.codes)
             total += response.codes.shape[1]
             if total >= (every if first is None else first):
-                handle = flush(buffer)
+                with self._engine.metrics.span("stream.codec.launch", kind="launch"):
+                    handle = flush(buffer)
                 buffer, total = [], 0
                 if first is not None:  # the first audio is what the listener waits for
                     yield self._force_pcm(*handle)
@@ -551,7 +557,8 @@ class FishTTS:
         if buffer:
             if in_flight is not None:
                 yield self._force_pcm(*in_flight)
-            in_flight = flush(buffer)
+            with self._engine.metrics.span("stream.codec.launch", kind="launch"):
+                in_flight = flush(buffer)
         if in_flight is not None:
             yield self._force_pcm(*in_flight)
 
@@ -695,7 +702,7 @@ class FishTTS:
     def _force_pcm(self, handle, n_frames: int, skip_frames: int = 0) -> bytes:
         """An enqueued decode as int16 PCM, without ``skip_frames`` of
         (context) audio at the front."""
-        with self._engine.metrics.span("vocoder"):
+        with self._engine.metrics.span("vocoder", kind="wait"):
             arr = self._read_audio(handle)
         fl = self._vocoder_cfg.frame_length
         return to_pcm_bytes(arr[skip_frames * fl:(skip_frames + n_frames) * fl])
@@ -703,7 +710,7 @@ class FishTTS:
     def _decode_codes(self, codes: np.ndarray) -> np.ndarray:
         """codes (K, n) -> float32 audio (n * frame_length,), decoded at the
         padded bucket length."""
-        with self._engine.metrics.span("vocoder"):
+        with self._engine.metrics.span("vocoder", kind="wait"):
             handle, n = self._decode_codes_async(codes)
             arr = self._read_audio(handle)
         return arr[: n * self._vocoder_cfg.frame_length]
@@ -1087,9 +1094,10 @@ class ServeSession:
         return self._srv.stats()
 
     def step(self) -> list[AudioEvent]:
-        """One scheduler round; returns the previous round's audio events
-        (audio is read one round late, so its copy overlaps device work)."""
-        with self._srv.on_stream():
+        """One scheduler round, a ``serve.round`` span; returns the previous
+        round's audio events (audio is read one round late, so its copy
+        overlaps device work)."""
+        with self._srv.on_stream(), self._tts._engine.metrics.span("serve.round"):
             return self._step()
 
     def _step(self) -> list[AudioEvent]:
@@ -1198,7 +1206,8 @@ class ServeSession:
         audio = None
         if active.any():
             dev = self._vdev or self._tts.device
-            with self._on_codec_stream():
+            with (self._on_codec_stream(),
+                  self._tts._engine.metrics.span("serve.codec.launch", kind="launch")):
                 self._state, pcm = self._decode(
                     self._vparams, self._state, to_device_async(codes, dev),
                     to_device_async(active, dev), to_device_async(reset, dev))
@@ -1213,7 +1222,7 @@ class ServeSession:
         arr = None
         if audio is not None:
             host, copied = audio
-            with self._tts._engine.metrics.span("vocoder"):
+            with self._tts._engine.metrics.span("vocoder", kind="wait"):
                 if copied is not None:
                     copied.synchronize()
                 arr = host.numpy()  # (slots, 1, samples) int16
@@ -1234,11 +1243,12 @@ class ServeSession:
     def warmup(self) -> None:
         """Drain one tiny request through the session, so that the pool's
         first graphs are captured and the codec's first round has run
-        before the first real request."""
+        before the first real request; ``stats()`` forgets it."""
         t0 = time.perf_counter()
         self.submit("Warm up.", max_new_tokens=2 * self._n, seed=0)
         for _ in self.run():
             pass  # the warmup request's audio is dropped
+        self._srv.clear_stats()
         logger.info("Serve pool warmup (%d slots) in %.1fs", self._slots,
                     time.perf_counter() - t0)
 

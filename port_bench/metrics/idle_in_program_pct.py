@@ -1,0 +1,8 @@
+"""The share of the traced window in which the card was idle while the
+thread that ran the program was inside a host or wait span (innermost)."""
+
+from port_bench import program_spans
+
+
+def read(run):
+    return program_spans.idle_pct(run, "program")

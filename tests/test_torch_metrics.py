@@ -1,9 +1,13 @@
 """The port's metrics (``utils/profiling.py``) against the JAX package's, and
 their wiring: prefill/decode/vocoder spans and token counts recorded by
-``FishTTS`` on the CPU, as ``tests/test_metrics.py`` checks them there."""
+``FishTTS`` on the CPU, as ``tests/test_metrics.py`` checks them there; the
+ring of span records (kind, parent, request id, thread) beside the
+aggregates, and its bound."""
 
 import itertools
+import threading
 import time
+from collections import deque
 
 import pytest
 import torch
@@ -70,3 +74,72 @@ def test_synthesize_records_spans_and_tokens():
     assert "hbm_gb" not in s  # the CPU reports no device memory
     tts.metrics.reset()
     assert tts.get_metrics()["tokens"] == 0 and not tts.get_metrics()["phases"]
+
+
+def _mine(t0: float, t1: float) -> list:
+    """The ring's records that began and ended inside [t0, t1]."""
+    return [r for r in tprofiling.spans(t0, t1) if t0 <= r.start and r.end <= t1]
+
+
+def test_span_and_record_write_the_aggregate_and_the_ring():
+    """A call span and a request span each add to the registry's aggregate
+    and to the ring, with kind, parent (the call span open on the thread),
+    request id and thread; every timestamp lies inside a surrounding
+    ``perf_counter()`` bracket; other threads' spans have no parent here."""
+    m = tprofiling.Metrics()
+    t0 = time.perf_counter()
+    with m.span("outer", rid=7) as outer:
+        with m.span("inner", kind="launch") as inner:
+            inner.rid = 8
+        m.record("req", t0, tprofiling.now(), rid=9)
+        done = []
+        th = threading.Thread(target=lambda: done.append(m.span("other", kind="wait")
+                                                         .__enter__().__exit__()))
+        th.start()
+        th.join(timeout=60)
+        assert not th.is_alive() and done
+    t1 = time.perf_counter()
+    recs = {r.name: r for r in _mine(t0, t1)}
+    assert set(recs) == {"outer", "inner", "req", "other"}
+    me = threading.get_ident()
+    assert recs["outer"] == (outer.seq, "outer", "host", recs["outer"].start,
+                             recs["outer"].end, None, 7, me)
+    assert (recs["inner"].kind, recs["inner"].parent, recs["inner"].rid,
+            recs["inner"].thread) == ("launch", outer.seq, 8, me)
+    assert (recs["req"].kind, recs["req"].parent, recs["req"].rid) == ("request", outer.seq, 9)
+    assert recs["other"].parent is None and recs["other"].thread != me
+    assert recs["other"].kind == "wait"
+    for r in recs.values():
+        assert t0 <= r.start <= r.end <= t1
+    assert recs["outer"].start <= recs["inner"].start <= recs["inner"].end <= recs["outer"].end
+    for name in recs:
+        assert m.phases[name].count == 1
+        assert m.phases[name].total_s == pytest.approx(recs[name].end - recs[name].start)
+    assert m.summary()["phases"]["req"]["count"] == 1
+    with pytest.raises(ValueError, match="kind"):
+        m.span("bad", kind="device")
+
+
+def test_the_ring_is_bounded(monkeypatch):
+    """The ring keeps the last ``RING_SIZE`` records; the aggregate counts
+    them all."""
+    monkeypatch.setattr(tprofiling, "_ring", deque(maxlen=16))
+    m = tprofiling.Metrics()
+    for i in range(40):
+        m.record("r", float(i), float(i) + 0.5, rid=i)
+    assert tprofiling._ring.maxlen == 16 and [r.rid for r in tprofiling.spans()] == list(
+        range(24, 40))
+    assert [r.rid for r in tprofiling.spans(30.2, 31.0)] == [30, 31]
+    assert m.phases["r"].count == 40
+    assert tprofiling.RING_SIZE == 65_536
+
+
+def test_rtf_sums_the_lm_and_codec_phases():
+    """Spans that nest inside or beside the LM's and the codec's leave the
+    real-time factor as the JAX package computes it."""
+    m = tprofiling.Metrics()
+    m.record_tokens(100)
+    for name, s in (("prefill", 0.5), ("decode", 1.0), ("vocoder", 0.25),
+                    ("engine.first_frames", 3.0), ("serve.round", 9.0)):
+        m.record(name, 0.0, s)
+    assert m.rtf == pytest.approx(1.75 / m.audio_seconds)

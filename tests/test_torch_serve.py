@@ -768,3 +768,101 @@ def test_events_match_the_jax_batcher(monkeypatch):
             torch.tensor([int(wf[row, f])]), picks[r], logits[r], gumbel[r], temperature[r],
             top_p[r], top_k, LOGIT_TOL * float(logits[b].abs().max()))
         assert not m["failures"], (i, f, row, m["failures"])
+
+
+def test_session_spans_nest_in_their_rounds():
+    """A drained ``FishTTS.serve`` session records one ``serve.round`` per
+    ``step()``, one ``serve.admit`` and one ``serve.queue`` per admitted
+    request under the request's id, and every call span it records in a
+    round nests under that round's span; the codes it serves are their
+    solo runs' (the spans change nothing served); its warm-up request is
+    not in ``stats()``."""
+    from fish_tts_tpu_torch import FishTTS
+    from fish_tts_tpu_torch.utils import profiling
+
+    tts = FishTTS(device="cpu", precision="fp32", warmup=False,
+                  _testing_bundle=testing.make_tiny_bundle(0))
+    sess = tts.serve(slots=2, warmup=True)
+    assert sess.stats()["completed"] == 0 and "ttft_p50_s" not in sess.stats()
+    plans = [("spans one", 41, 14), ("spans two", 42, 9), ("spans three", 43, 12)]
+    solos = {seed: solo_codes(tts.engine, text, seed, n) for text, seed, n in plans}
+    srv, codes = sess._srv, {}
+    inner = srv.step
+
+    def tapped():
+        events = inner()
+        for ev in events:
+            codes.setdefault(ev.request_id, []).append(ev.codes)
+        return events
+
+    srv.step = tapped
+    t0 = profiling.now()
+    rids = {sess.submit(text, max_new_tokens=n, seed=seed, **SAMPLING): seed
+            for text, seed, n in plans}
+    steps = 0
+    while sess.busy:
+        sess.step()
+        steps += 1
+    t1 = profiling.now()
+    for rid, seed in rids.items():
+        np.testing.assert_array_equal(np.concatenate(codes[rid], axis=1), solos[seed])
+    me = threading.get_ident()
+    recs = [r for r in profiling.spans(t0, t1) if t0 <= r.start and r.end <= t1
+            and r.thread == me]
+    by_seq = {r.seq: r for r in recs}
+    names = [r.name for r in recs]
+    assert names.count("serve.round") == steps
+    for name in ("serve.admit", "serve.queue", "serve.prepare"):
+        assert sorted(r.rid for r in recs if r.name == name) == sorted(rids), name
+    assert all(r.kind == "request" for r in recs if r.name == "serve.queue")
+    assert {r.name for r in recs if r.parent is None} == {"serve.round", "serve.prepare"}
+    for r in recs:
+        if r.parent is None:
+            continue
+        top = r
+        while top.parent is not None:
+            parent = by_seq[top.parent]
+            if r.kind != "request":
+                assert parent.start <= r.start <= r.end <= parent.end, (r, parent)
+            top = parent
+        assert top.name == "serve.round", r
+    assert {r.name for r in recs if by_seq.get(r.parent, r).name == "serve.round"} >= {
+        "serve.admit", "serve.queue", "serve.lm.launch", "serve.lm.wait", "serve.codec.launch",
+        "vocoder"}
+
+
+def test_stats_report_over_a_window_of_the_spans_clock(engine, monkeypatch):
+    """``stats()`` takes its samples on ``profiling.now`` and reports over
+    the last ``STATS_WINDOW_S``: a request served at one time drops out of
+    it when the clock moves past the window; its queue wait is its
+    ``serve.queue`` span's."""
+    from fish_tts_tpu_torch.engine import serve as serve_mod
+    from fish_tts_tpu_torch.utils import profiling
+
+    clock = {"t": 1000.0}
+
+    def fake_now():
+        clock["t"] += 1e-3
+        return clock["t"]
+
+    monkeypatch.setattr(profiling, "now", fake_now)
+    srv = ContinuousBatcher(engine, slots=1)
+    rid = submit(srv, "served early", 6, 91)
+    _, done = collect(srv.run())
+    st = srv.stats()
+    assert rid in done and st["completed"] == 1 and st["expired"] == 0
+    queue = [r for r in profiling.spans(1000.0, clock["t"]) if r.name == "serve.queue"
+             and r.rid == rid]
+    assert len(queue) == 1
+    assert st["queue_wait_p50_s"] == pytest.approx(queue[0].end - queue[0].start)
+    assert st["ttft_p50_s"] >= st["queue_wait_p50_s"]
+    clock["t"] += serve_mod.STATS_WINDOW_S + 1.0
+    st = srv.stats()
+    assert st["completed"] == 0 and "queue_wait_p50_s" not in st and "ttft_p50_s" not in st
+    rid2 = submit(srv, "served late", 30, 92)
+    srv.step()
+    srv.step()
+    st = srv.stats()  # in flight: its first frames count before it completes
+    assert srv.busy and st["completed"] == 0 and st["ttft_p50_s"] > 0
+    _, done = collect(srv.run())
+    assert rid2 in done and srv.stats()["completed"] == 1

@@ -436,6 +436,28 @@ def test_context_mode_keeps_the_framing(tts):
     assert np.abs(first - np.frombuffer(stateful[0], np.int16)).max() <= 1
 
 
+def test_stream_records_its_first_frames_once(tts):
+    """A ``synthesize_stream`` call records one ``engine.first_frames``
+    request span, from the call's start to the host holding its first
+    frames: it ends at or after the end of the ``prefill`` wait inside it;
+    each flush is a ``stream.codec.launch`` and each read a ``vocoder``
+    wait."""
+    from fish_tts_tpu_torch.utils import profiling
+
+    t0 = profiling.now()
+    chunks = list(tts.synthesize_stream(TEXT, max_tokens=47))
+    t1 = profiling.now()
+    recs = [r for r in profiling.spans(t0, t1) if t0 <= r.start and r.end <= t1]
+    first = [r for r in recs if r.name == "engine.first_frames"]
+    prefill = [r for r in recs if r.name == "prefill"]
+    assert len(first) == len(prefill) == 1 and first[0].kind == "request"
+    assert prefill[0].kind == "wait" and first[0].rid == prefill[0].rid
+    assert first[0].start <= prefill[0].start and first[0].end >= prefill[0].end
+    names = [r.name for r in recs]
+    assert names.count("stream.codec.launch") == names.count("vocoder") == len(chunks)
+    assert names.count("engine.prompt") == names.count("engine.prefill.launch") == 1
+
+
 def test_stream_rejects_unknown_kwargs(tts):
     with pytest.raises(TypeError):
         next(tts.synthesize_stream("x", max_new_tokens=8))

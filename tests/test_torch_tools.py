@@ -13,8 +13,8 @@ at tiny size, against the JAX scripts they port:
   off (a spy on ``decode.route``) and restores every ``supports``, after a
   normal return and after an exception;
 - the KV-bucket A/B skips an out-of-contract bucket and runs the others;
-- the serving profiler's wrapped attributes are restored and its phases
-  carry the JAX labels;
+- the serving profiler replaces no attribute of the program while it runs,
+  and its rows are the registry's span aggregates over its measured part;
 - ``--device cuda`` without a card raises, in every script.
 
 The JAX scripts run only on a TPU (their kernels have no CPU lowering), so
@@ -32,7 +32,6 @@ import torch
 from test_torch_stream import one_thread  # noqa: F401 (an autouse fixture)
 
 import chip_smoke
-from fish_tts_tpu_torch import FishTTS, testing
 from fish_tts_tpu_torch.config import TINY_VOCODER_CONFIG
 from fish_tts_tpu_torch.engine import decode
 from fish_tts_tpu_torch.engine import serve as serve_mod
@@ -49,6 +48,8 @@ from fish_tts_tpu_torch.scripts import (
     profile_vocoder,
     verify_sampler,
 )
+from fish_tts_tpu_torch.synthesizer import ServeSession
+from fish_tts_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ["--tiny", "--device", "cpu"]
@@ -67,8 +68,6 @@ JAX_LABELS = {
                            "cache scatter only (advanced idx)",
                            "cache scatter only (B x dyn_upd_slice)", "full slow_forward (XLA)"],
 }
-SERVE_LABELS = {"lm_step", "lm_dispatch", "lm_frames_fetch+route", "voc_dispatch",
-                "audio_fetch+convert"}
 
 
 def renamed(label: str) -> str:
@@ -247,47 +246,62 @@ def test_kvbucket_skips_an_out_of_contract_bucket(capsys):
     assert records[0]["ms_per_frame"] > 0 and records[0]["device"] == "cpu"
 
 
-def _tiny_session():
-    tts = FishTTS(device="cpu", precision="fp32", warmup=False,
-                  _testing_bundle=testing.make_tiny_bundle(0))
-    return tts.serve(slots=2, warmup=False)
+SHARED = (ServeSession, serve_mod.ContinuousBatcher, decode.DecodeGraph, decode, serve_mod,
+          profiling, profiling.Metrics)
 
 
-def _wrapped_attrs(sess):
-    return (decode.DecodeGraph.run, decode.decode_chunk,
-            serve_mod.ContinuousBatcher._process, sess.__dict__.get("_emit"),
-            sess._srv.__dict__.get("step"), sess._decode)
+def _callables(obj) -> dict:
+    return {k: v for k, v in vars(obj).items() if callable(v)}
 
 
-def test_profile_serving_restores_what_it_wraps():
-    sess = _tiny_session()
-    before = _wrapped_attrs(sess)
-    phases = profile_serving.Phases(torch.device("cpu"))
-    with profile_serving.instrument(sess, phases):
-        during = _wrapped_attrs(sess)
-        assert all(a is not b for a, b in zip(during, before))
-        sess.submit("hi", max_new_tokens=6)
-        for _ in sess.run():
-            pass
-    assert _wrapped_attrs(sess) == before
-    assert set(phases.host) == SERVE_LABELS and phases.device_s("lm_step") is None
-    with pytest.raises(RuntimeError, match="boom"):
-        with profile_serving.instrument(sess, phases):
-            raise RuntimeError("boom")
-    assert _wrapped_attrs(sess) == before
+def test_profile_serving_replaces_no_program_attribute(monkeypatch):
+    """At every round the profiler runs, the serving path's classes and
+    modules hold the callables they held before it started, and no
+    attribute of its objects shadows a method of its class; its rows are the sums of
+    the ring's spans over the measured part, which the registry's
+    aggregates also hold."""
+    shared = [_callables(o) for o in SHARED]
+    seen = {"rounds": 0, "changed": []}
+
+    def watch(frame, event, arg):
+        if event == "call" and frame.f_code is ServeSession._step.__code__:
+            sess = frame.f_locals["self"]
+            objs = (sess, sess._srv, sess._srv.engine, sess._srv.engine.metrics)
+            seen["changed"] += [o for o, was in zip(SHARED, shared) if _callables(o) != was]
+            seen["changed"] += [(type(o).__name__, a) for o in objs for a in vars(o)
+                                if callable(getattr(type(o), a, None))]
+            seen["rounds"] += 1
+
+    sys.setprofile(watch)
+    try:
+        records = profile_serving.main(TINY + ["--slots", "2", "--requests", "3",
+                                               "--budget", "12"])
+    finally:
+        sys.setprofile(None)
+    assert seen["rounds"] > 3 and seen["changed"] == []
+    agg = records[-1]
+    spans = profiling.spans(agg["t0"], agg["t1"])
+    for r in records[:-2]:
+        mine = [sp for sp in spans if sp.name == r["label"] and agg["t0"] <= sp.start
+                and sp.end <= agg["t1"]]
+        assert r["n"] == len(mine), r
+        assert r["host_s"] == pytest.approx(sum(sp.end - sp.start for sp in mine), abs=1e-9)
 
 
 def test_profile_serving_rows():
     records = profile_serving.main(TINY + ["--slots", "2", "--requests", "3", "--budget", "12"])
-    labels = [r["label"].strip() for r in records]
-    assert labels == ["lm_step (total)", "lm_dispatch", "lm_frames_fetch+route",
-                      "lm sched remainder", *labels[4:6], "host_other (rest of step)",
-                      "TOTAL step", "aggregate"]
-    assert set(labels[4:6]) == {"voc_dispatch", "audio_fetch+convert"}
+    labels = [r["label"] for r in records]
+    assert labels == [*profile_serving.PHASES, "round self time", "aggregate"]
     check_finite([r for r in records if r["label"] != "aggregate"])
+    by = {r["label"]: r for r in records}
     agg = records[-1]
     assert agg["frames"] == 3 * 12 and agg["frames_per_s"] > 0
-    assert all(r["device_ms_per_round"] is None for r in records[:-1])
+    assert by["serve.round"]["n"] == agg["rounds"]
+    assert by["serve.admit"]["n"] == by["serve.queue"]["n"] == by["serve.prepare"]["n"] == 3
+    parts = sum(by[k]["host_s"] for k in ("serve.admit", "serve.lm.launch", "serve.lm.wait",
+                                          "serve.codec.launch", "vocoder", "round self time"))
+    assert parts == pytest.approx(by["serve.round"]["host_s"])
+    assert 0 <= by["round self time"]["host_s"] < by["serve.round"]["host_s"]
 
 
 def test_timing_helpers_on_the_cpu():
