@@ -132,7 +132,9 @@ printing its own lines; any failure raises and the script exits non-zero:
    the stateful stream's PCM within STREAM_PCM_TOL int16 steps of the joint
    decode of the same codes; the route's launches and every decode frame a
    graph replay; time to first audio (median of STREAM_RUNS calls) and the
-   whole stream's frames/s; the codec's device time per 20-frame chunk.
+   whole stream's frames/s; the codec's device time per 20-frame chunk; no
+   frame of the phase (B = 1) takes the fast decoder's spread attention
+   (``fast_decoder.launches_spread`` unchanged).
 
 8. batch (on the same two instances, after their stream phase):
    ``synthesize_batch`` at B = 1, 4, 8 and 16 (BATCH_SIZES), texts in two
@@ -156,7 +158,9 @@ printing its own lines; any failure raises and the script exits non-zero:
    other prompt buckets), one with priority 1, one cancelled at its first audio.  Each kernel
    launches once per pool decode frame, the sampler and the fast decoder
    also once per admitted request's prefill, and every decode frame is a
-   graph replay; every graph captured mid-serving leaves the pool's state
+   graph replay; the fast decoder's spread attention runs in every pool
+   frame (B >= 2) and in no admission prefill (``launches_spread``); every
+   graph captured mid-serving leaves the pool's state
    and the chunk in flight as they were.  Each request's codes equal its
    codes served alone in a pool of the same slots, on every route, and its
    solo B = 1 run's or differ first at a knife edge of the solo run's
@@ -658,16 +662,20 @@ def fast_decoder_spills(log: Path) -> list[str]:
     return out
 
 
-def fast_phase_labels(cfg) -> list[str]:
-    """The fast-decoder kernel's phases, one per grid-wide barrier, in order
-    (csrc/fast_decoder.cu)."""
+def fast_phase_labels(cfg, batch: int, dequant: str = "value") -> list[str]:
+    """The fast-decoder kernel's phases at ``batch`` streams in ``dequant``
+    mode, one per grid-wide barrier, in order (csrc/fast_decoder.cu): the
+    batched "value" instantiations (B >= 2) spread the attention over the
+    grid in a phase of its own, before W_o; B = 1 and "s8" keep it with W_o."""
+    spread = batch >= 2 and dequant != "s8"
+    attention = ["attention", "W_o + residual"] if spread else ["attention + W_o"]
     labels = []
     for pos in range(cfg.num_codebooks):
         for layer in range(cfg.n_fast_layer):
             if pos == 0 and layer == cfg.n_fast_layer - 1:
                 labels += ["RMSNorm + W_qkv", "cache row"]  # position 0's last layer
                 break
-            labels += ["RMSNorm + W_qkv", "attention + W_o", "RMSNorm + W_1/W_3", "W_2"]
+            labels += ["RMSNorm + W_qkv", *attention, "RMSNorm + W_1/W_3", "W_2"]
         if pos > 0:
             labels += ["fast_norm + head", "sampling"]
     return labels
@@ -725,10 +733,11 @@ def phase_breakdown(kern, module, labels: list[str], dev,
     return lines
 
 
-def fast_phase_breakdown(kern, cfg, dev, sums: dict | None = None) -> list[str]:
+def fast_phase_breakdown(kern, cfg, dev, batch: int, sums: dict | None = None,
+                         dequant: str = "value") -> list[str]:
     from fish_tts_tpu_torch.ops import fast_decoder as fd
 
-    return phase_breakdown(kern, fd, fast_phase_labels(cfg), dev, sums)
+    return phase_breakdown(kern, fd, fast_phase_labels(cfg, batch, dequant), dev, sums)
 
 
 def slow_phase_breakdown(kern, cfg, dev) -> list[str]:
@@ -956,7 +965,7 @@ def check_fast_decoder(params, cfg, rope, B: int, gen, dev, per_row: bool = Fals
     streamed_ms = (read + (K - 1) * nbytes(*weights) + written) / HBM_BYTES_PER_S * 1e3
     phases: dict = {}
     if not per_row:
-        for line in fast_phase_breakdown(kern, cfg, dev, phases):
+        for line in fast_phase_breakdown(kern, cfg, dev, B, phases, dequant):
             print(f"kernel {name} B={B} phases: {line}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 max_abs_err=m["max_abs_err"], margins=m, phases=phases,
@@ -993,11 +1002,21 @@ def s8_beside_value(results: dict) -> None:
     B = S8_PHASE_BATCH
     ps, pv = results[S8][f"B={B}"]["phases"], value[f"B={B}"]["phases"]
     for label, (n, span_v, rel_v) in pv.items():
+        if label not in ps:  # the value kernel's spread attention and its W_o
+            print(f"kernel {S8} B={B} phases beside value: {label:24s} x{n:3d}: span value "
+                  f"{span_v:8.1f} us ({span_v / n:6.2f} each), value only; release value "
+                  f"{rel_v:7.1f} us", flush=True)
+            continue
         _, span_s, rel_s = ps[label]
         print(f"kernel {S8} B={B} phases beside value: {label:24s} x{n:3d}: span value "
               f"{span_v:8.1f} us ({span_v / n:6.2f} each), s8 {span_s:8.1f} us "
               f"({span_s / n:6.2f} each), s8/value {span_s / span_v:5.2f}; release value "
               f"{rel_v:7.1f}, s8 {rel_s:7.1f} us", flush=True)
+    for label in ps.keys() - pv.keys():
+        n, span_s, rel_s = ps[label]
+        print(f"kernel {S8} B={B} phases beside value: {label:24s} x{n:3d}: span s8 "
+              f"{span_s:8.1f} us ({span_s / n:6.2f} each), s8 only; release s8 "
+              f"{rel_s:7.1f} us", flush=True)
 
 
 def phase_kernels(dev, batches=(1, 4, 16), fast_batches=(1, 4, 16), slow_cases=SLOW_CASES):
@@ -2247,16 +2266,20 @@ def phase_stream(tts, seen, name: str) -> None:
     modes (:func:`check_stream`), the streamed codes equal to the
     non-streamed call's with the same seed, the stateful stream's PCM held
     against the joint decode; the codec's device time per 20-frame chunk.
-    Clears the references at the end."""
+    Every frame of the phase is B = 1, so none takes the fast decoder's
+    spread attention (``fast_decoder.launches_spread`` unchanged).  Clears
+    the references at the end."""
     import numpy as np
     import torch
 
     from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.models import vocoder, vocoder_stream
     from fish_tts_tpu_torch.models.dual_ar import cast_params
+    from fish_tts_tpu_torch.ops import fast_decoder
     from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
     from fish_tts_tpu_torch.utils.audio import to_pcm_bytes
 
+    spread = fast_decoder.launches_spread
     profile = reference_profile(tts._cfg)
     engine = tts.engine
     torch.cuda.synchronize()
@@ -2358,6 +2381,11 @@ def phase_stream(tts, seen, name: str) -> None:
               f"(median of 10); device {dev_us / 1e3:.3f} ms, host {host_us / 1e3:.3f} ms "
               f"with the host ahead", flush=True)
     tts.clear_references()
+    if fast_decoder.launches_spread != spread:
+        fail(f"stream {name}: {fast_decoder.launches_spread - spread} fast-decoder launches "
+             f"took the spread attention in a phase of B = 1 frames")
+    print(f"stream {name}: fast-decoder launches with the spread attention unchanged "
+          f"({spread})", flush=True)
 
 
 # --- phase 8: batched synthesis ----------------------------------------------------
@@ -2920,6 +2948,7 @@ def phase_serve(tts, name: str) -> None:
     import torch
 
     from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.ops import fast_decoder
 
     slots, n, waves, budgets = SERVE_CASES[name]
     label = f"serve {name} slots={slots}"
@@ -2937,6 +2966,7 @@ def phase_serve(tts, name: str) -> None:
     cancel = SERVE_CANCEL
     rec = ServeRecorder(sess)
     zero_counts()
+    spread0 = fast_decoder.launches_spread
     torch.cuda.reset_peak_memory_stats()
     allocs0 = len(srv.allocs)
     try:
@@ -2946,6 +2976,7 @@ def phase_serve(tts, name: str) -> None:
         rec.stop()
     st = sess.stats()
     launches = kernel_counts()
+    spread = fast_decoder.launches_spread - spread0
     replays, eager = decode.graph_replays, decode.eager_frames
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     W = tts.engine.engine_cfg.rep_penalty_window
@@ -2961,6 +2992,15 @@ def phase_serve(tts, name: str) -> None:
     if launches != want or eager or not replays:
         fail(f"{label}: kernel launches {launches} with {replays} graph replays, {eager} eager "
              f"frames and {len(rec.prefills)} admissions; the routes imply {want}")
+    # the fast decoder's spread attention: every pool frame at B >= 2 (so
+    # some, as replays > 0), no admission prefill of one request
+    want_spread = pool.fast * replays * (slots >= 2) + sum(rt(g).fast for g in rec.prefills
+                                                           if g >= 2)
+    if spread != want_spread:
+        fail(f"{label}: {spread} fast-decoder launches with the spread attention, the routes "
+             f"imply {want_spread}")
+    print(f"{label}: {spread} fast-decoder launches with the spread attention of "
+          f"{launches['fast_decode_frame']}", flush=True)
     tally("serve", launches)
     if cancelled_at is None:
         fail(f"{label}: request {cancel} never reached its first audio")

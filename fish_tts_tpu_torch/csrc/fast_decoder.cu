@@ -52,12 +52,24 @@
 // it fails rather than runs if the blocks cannot all be resident), the
 // phases separated by grid-wide barriers (cooperative_groups grid sync):
 //   1. (merge of the sampled code, embedding) + RMSNorm + W_qkv
-//   2. RoPE + attention + W_o + residual
+//   2. RoPE + attention + W_o + residual, or in the batched "value"
+//      instantiations (MAXB 4 and 16, so B >= 2) two phases:
+//      2a. RoPE + attention, spread over the grid: each (stream, query
+//          head) is one warp's unit, its bf16 output row goes to obuf
+//      2b. W_o + residual on obuf, staged from L2
 //   3. RMSNorm + W_1/W_3 SwiGLU
 //   4. W_2 + residual                        (1-4 for each layer)
 //   5. fast_norm + head over the first Vr rows
 //   6. penalty + softmax + pairwise top-p + Gumbel score over a share of
 //      the Vr lanes, one (value, index) candidate per block and stream
+// Phase 2 in one piece repeats every stream's attention in every block, so
+// at B = 16 each block would walk 128 (stream, KV head) tasks, eight a warp,
+// and read every stream's cache rows from L2, to use only its own W_o
+// input; spread, each unit is attended once and the grid pays one more
+// barrier.  B = 1 keeps phase 2 whole: its 16 tasks fill a block's warps
+// once, and the barrier would only add to them.  The "s8" instantiations
+// keep it whole too: their W_o input's per-stream maxima come with the
+// attention, in every block, which a spread phase would have to publish.
 // Position 0's last layer stops after W_qkv and the cache row: its output
 // is discarded.  Block i owns the same output rows of every matrix at every
 // layer and position (a contiguous range, so its rows are one contiguous
@@ -75,11 +87,11 @@
 // fewer rows than warps; every sum, within a block or across the warps of
 // one, is taken in one fixed order, so no float atomics are used, two calls
 // give bit-identical results, and the work that every block repeats rather
-// than pay for a barrier (the RMSNorm statistics, the attention over at
-// most K cached rows, the penalty and softmax over the Vr lanes) gives the
-// same values in every block.  Cross-block data (residual, projections,
-// logits, candidates, cache) is read with ld.global.cg, from L2, never from
-// a stale L1 line.
+// than pay for a barrier (the RMSNorm statistics, at B = 1 and in "s8" the
+// attention over at most K cached rows, the penalty and softmax over the Vr
+// lanes) gives the same values in every block.  Cross-block data (residual,
+// projections, attention output, logits, candidates, cache) is read with
+// ld.global.cg, from L2, never from a stale L1 line.
 #include <cooperative_groups.h>
 
 #include "persistent.cuh"
@@ -139,6 +151,7 @@ struct FastArgs {
   float* kc;        // (L, B, Hkv, K, Dh) per-frame cache
   float* vc;
   float* head_buf;  // (B, Vr) head logits
+  __nv_bfloat16* obuf;  // (B, H*Dh) the spread attention's output, W_o's input
   float* cand_v;    // (grid, B) best Gumbel score of each block's lanes
   int* cand_i;
   unsigned long long* clock;  // (grid, clock_cap) barrier times, or nullptr
@@ -342,8 +355,45 @@ __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int
   }
 }
 
+// One query head's attention at position pos, by one warp (lane i holds
+// dims (2i, 2i + 1); `on` for the lanes within Dh): the query qg roped
+// here, the token's roped key ks and value vs, cache rows kr, vr (rows past
+// pos hold zeros).  Returns the weighted sums of the two dims and the
+// softmax's denominator (o.x, o.y, den); the output is o / den.
+__device__ __forceinline__ float3 attend_head(float2 qg, const float* ks, float2 vs,
+                                              const float2* kr, const float2* vr, int pos,
+                                              const __nv_bfloat16* rope_row, int lane, bool on,
+                                              float scale) {
+  float q0 = 0.f, q1 = 0.f;
+  if (on) rope_pair(qg.x, qg.y, rope_row, lane, &q0, &q1);
+  const float s_self = warp_sum(fmaf(q1, ks[1], q0 * ks[0])) * scale;
+  // every row's sum runs (rows past pos hold zeros) so that no shuffle
+  // sits under a branch; they are masked after
+  float sc[kMaxPos];
+  float mx = s_self;
+#pragma unroll
+  for (int r = 0; r < kMaxPos; ++r) {
+    sc[r] = warp_sum(fmaf(q1, kr[r].y, q0 * kr[r].x)) * scale;
+    sc[r] = r < pos ? sc[r] : kNeg;
+    mx = fmaxf(mx, sc[r]);
+  }
+  const float p_self = expf(s_self - mx);
+  float den = p_self, o0 = p_self * vs.x, o1 = p_self * vs.y;
+#pragma unroll
+  for (int r = 0; r < kMaxPos; ++r) {
+    if (r < pos) {
+      const float p = expf(sc[r] - mx);
+      den += p;
+      o0 = fmaf(p, vr[r].x, o0);
+      o1 = fmaf(p, vr[r].y, o1);
+    }
+  }
+  return make_float3(o0, o1, den);
+}
+
 // Attention of every stream and query head at position pos (cache rows
-// r < pos plus the token's own key), run in every block; the output goes
+// r < pos plus the token's own key), run in every block: the B = 1 and
+// "s8" instantiations' phase 2.  The output goes
 // to out (B, H*Dh), the input of W_o: bf16, or f32 in the s8 variant,
 // which also takes each stream's max |output| into omax (zeroed by the
 // caller) with one shared-memory atomicMax per task.  One warp per
@@ -351,7 +401,10 @@ __device__ __forceinline__ void stage_norm(const FastArgs& a, int src, const int
 // keep every warp busy; lane i holds dims (2i, 2i + 1).  Every load (own key and value, the
 // queries, the cache rows) is issued before any score is formed, and
 // after_loads() runs once the first task's loads have landed.  Block 0
-// also writes the token's roped key and value into cache row pos.
+// also writes the token's roped key and value into cache row pos.  At B = 1
+// the tasks fill the block's warps once; in "s8" the maxima need the whole
+// output in every block.  The batched "value" instantiations run
+// attend_spread instead.
 template <bool S8, typename F>
 __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
                                            const __nv_bfloat16* rope_s, void* out, float* omax,
@@ -422,30 +475,8 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
           }
         }
         const float2 qg = (g & 1) ? qq[1] : qq[0];
-        float q0 = 0.f, q1 = 0.f;
-        if (on) rope_pair(qg.x, qg.y, rope_row, lane, &q0, &q1);
-        const float s_self = warp_sum(fmaf(q1, ks[1], q0 * ks[0])) * scale;
-        // every row's sum runs (rows past pos hold zeros) so that no
-        // shuffle sits under a branch; they are masked after
-        float sc[kMaxPos];
-        float mx = s_self;
-#pragma unroll
-        for (int r = 0; r < kMaxPos; ++r) {
-          sc[r] = warp_sum(fmaf(q1, kr[r].y, q0 * kr[r].x)) * scale;
-          sc[r] = r < pos ? sc[r] : kNeg;
-          mx = fmaxf(mx, sc[r]);
-        }
-        const float p_self = expf(s_self - mx);
-        float den = p_self, o0 = p_self * vs.x, o1 = p_self * vs.y;
-#pragma unroll
-        for (int r = 0; r < kMaxPos; ++r) {
-          if (r < pos) {
-            const float p = expf(sc[r] - mx);
-            den += p;
-            o0 = fmaf(p, vr[r].x, o0);
-            o1 = fmaf(p, vr[r].y, o1);
-          }
-        }
+        const float3 acc = attend_head(qg, ks, vs, kr, vr, pos, rope_row, lane, on, scale);
+        const float o0 = acc.x, o1 = acc.y, den = acc.z;
         if (on) {
           const size_t at = (size_t)b * q_size + (j * G + g0 + g) * a.Dh + 2 * lane;
           if constexpr (S8) {
@@ -467,6 +498,71 @@ __device__ __forceinline__ void attend_all(const FastArgs& a, int l, int pos,
   }
   if (first) after_loads();
   __syncthreads();
+}
+
+// The attention of the batched "value" instantiations (phase 2a), spread
+// over the grid: unit u = b * H + h is stream b's query head h = j * G + g
+// (KV head j), attended once, by the warp w = warp * gridDim.x + blockIdx.x
+// with w = u mod (kFastWarps * gridDim.x), so that consecutive units land
+// on distinct blocks.  A unit reads its query, its KV head's key and value
+// and the cache rows r < pos once, from L2, and writes its output row,
+// rounded to bf16 once, at obuf + u * Dh (row b, columns h * Dh of the W_o
+// input); the unit with g = 0 writes the token's roped key and value into
+// cache row pos.  after_loads() runs once the warp's first unit's loads
+// have landed.
+template <typename F>
+__device__ __forceinline__ void attend_spread(const FastArgs& a, int l, int pos,
+                                              const __nv_bfloat16* rope_s, F after_loads) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = a.H / a.Hkv, q_size = a.H * a.Dh, kv_size = a.Hkv * a.Dh;
+  const int nqkv = q_size + 2 * kv_size;
+  const bool on = lane < a.Dh / 2;
+  const float scale = 1.0f / sqrtf((float)a.Dh);
+  const __nv_bfloat16* rope_row = rope_s + pos * a.Dh;
+  const size_t c_sh = (size_t)a.K * a.Dh, c_sb = c_sh * a.Hkv, c_sl = c_sb * a.B;
+  bool first = true;
+  for (int u = warp * gridDim.x + blockIdx.x; u < a.B * a.H; u += kFastWarps * gridDim.x) {
+    const int b = u / a.H, h = u - b * a.H, j = h / G;
+    const float* row = a.qkv + (size_t)b * nqkv;
+    const size_t cb = l * c_sl + b * c_sb + j * c_sh;
+    float2 kk = make_float2(0.f, 0.f), vs = kk, qg = kk, kr[kMaxPos], vr[kMaxPos];
+    if (on) {
+      kk = __ldcg(reinterpret_cast<const float2*>(row + q_size + j * a.Dh) + lane);
+      vs = __ldcg(reinterpret_cast<const float2*>(row + q_size + kv_size + j * a.Dh) + lane);
+      qg = __ldcg(reinterpret_cast<const float2*>(row + h * a.Dh) + lane);
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxPos; ++r) {
+      kr[r] = vr[r] = make_float2(0.f, 0.f);
+      if (r < pos && on) {
+        kr[r] = __ldcg(reinterpret_cast<const float2*>(a.kc + cb + (size_t)r * a.Dh) + lane);
+        vr[r] = __ldcg(reinterpret_cast<const float2*>(a.vc + cb + (size_t)r * a.Dh) + lane);
+      }
+    }
+    float ks[2] = {0.f, 0.f};
+    if (on) rope_pair(kk.x, kk.y, rope_row, lane, &ks[0], &ks[1]);
+    if (first) {
+      // every load of this unit is in use below; wait for them here
+      float dep = ks[0] + vs.x + qg.x;
+#pragma unroll
+      for (int r = 0; r < kMaxPos; ++r) dep += kr[r].x + vr[r].y;
+      asm volatile("add.f32 %0, %0, 0f00000000;" : "+f"(dep));
+      after_loads();
+      first = false;
+    }
+    if (on && h == j * G) {
+      const size_t at = cb + (size_t)pos * a.Dh + 2 * lane;
+      __stcg(reinterpret_cast<float2*>(a.kc + at), make_float2(ks[0], ks[1]));
+      __stcg(reinterpret_cast<float2*>(a.vc + at), vs);
+    }
+    const float3 acc = attend_head(qg, ks, vs, kr, vr, pos, rope_row, lane, on, scale);
+    if (on) {
+      const __nv_bfloat162 o = __floats2bfloat162_rn(acc.x / acc.z, acc.y / acc.z);
+      __stcg(reinterpret_cast<unsigned*>(a.obuf + (size_t)u * a.Dh) + lane,
+             *reinterpret_cast<const unsigned*>(&o));
+    }
+  }
+  if (first) after_loads();
 }
 
 // Block 0 writes the token's key and value into cache row pos of layer l
@@ -603,6 +699,8 @@ __device__ void merge_codes(const FastArgs& a, int cb, int* code) {
 // S8: the "s8" dequant mode (int8 staging, int8 tensor-core GEMVs); else "value".
 template <int MAXB, bool S8>
 __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastArgs a) {
+  // the batched "value" instantiations spread the attention over the grid
+  constexpr bool kSpread = MAXB > 1 && !S8;
   // a skipped frame: every block reads the same flag before any barrier and
   // returns, so the grid leaves together and writes nothing
   if (a.skip != nullptr && *a.skip) return;
@@ -776,23 +874,36 @@ __global__ void __launch_bounds__(kFastThreads, 1) fast_frame_kernel(const FastA
         break;
       }
 
-      // phase 2: attention + W_o + residual
-      sp = begin(pos, kWoW, l);
-      if constexpr (S8) {
-        if ((int)threadIdx.x < B) pmax[threadIdx.x] = 0.f;
+      if constexpr (kSpread) {
+        // phase 2a: attention, each (stream, query head) once on the grid;
+        // the copy of the phase after W_o starts once the loads have landed
+        attend_spread(a, l, pos, rope_s, [&]() { prefetch(pos, kWoW, l); });
+        barrier();
+
+        // phase 2b: W_o + residual, its input read from L2 once
+        sp = begin(pos, kWoW, l);
+        for (int i = threadIdx.x; i < B * q_size / 8; i += kFastThreads)
+          reinterpret_cast<int4*>(xs)[i] = __ldcg(reinterpret_cast<const int4*>(a.obuf) + i);
         __syncthreads();
-      }
-      attend_all<S8>(a, l, pos, rope_s, S8 ? static_cast<void*>(xf) : stage, pmax,
-                     [&]() { prefetch(pos, kWoW, l); });
-      if constexpr (S8) {
-        // the scales of the maxima attend_all took as it wrote the output
-        if ((int)threadIdx.x < B) set_scale_s8(threadIdx.x, pmax[threadIdx.x], xsc, xrc);
-        __syncthreads();
-        auto att = [&](int b, int k4) {
-          return reinterpret_cast<const float4*>(xf + (size_t)b * q_size)[k4];
-        };
-        quantize_rows_s8(att, B, q_size / 4, xsc, xrc, xq, s8_ld(q_size));
-        trace(q_size, pos, l, 1);
+      } else {
+        // phase 2: attention + W_o + residual
+        sp = begin(pos, kWoW, l);
+        if constexpr (S8) {
+          if ((int)threadIdx.x < B) pmax[threadIdx.x] = 0.f;
+          __syncthreads();
+        }
+        attend_all<S8>(a, l, pos, rope_s, S8 ? static_cast<void*>(xf) : stage, pmax,
+                       [&]() { prefetch(pos, kWoW, l); });
+        if constexpr (S8) {
+          // the scales of the maxima attend_all took as it wrote the output
+          if ((int)threadIdx.x < B) set_scale_s8(threadIdx.x, pmax[threadIdx.x], xsc, xrc);
+          __syncthreads();
+          auto att = [&](int b, int k4) {
+            return reinterpret_cast<const float4*>(xf + (size_t)b * q_size)[k4];
+          };
+          quantize_rows_s8(att, B, q_size / 4, xsc, xrc, xq, s8_ld(q_size));
+          trace(q_size, pos, l, 1);
+        }
       }
       S = gemv(sp);
       if (x_owner) x_own += row(sp, S, xj, xb);
@@ -1007,18 +1118,19 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.logits_out = static_cast<float*>(p[kLogitsOut]);
   // scratch, each part a multiple of 4 floats: x (B, D), qkv, the SwiGLU
   // hidden (B, I), the K and V caches (L, B, Hkv, K, Dh), the head logits
-  // (B, Vr), the candidates' scores and lanes, and the s8 variant's
-  // published maxima (cap each)
+  // (B, Vr), the candidates' scores and lanes, the s8 variant's published
+  // maxima (cap each), and the spread attention's bf16 output (B, H*Dh)
   const int cap = d[kCandCap];
   const long long parts[] = {(long long)a.B * a.D,
                              (long long)a.B * (a.H + 2 * a.Hkv) * a.Dh,
                              (long long)a.B * a.I,
                              (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
                              (long long)a.L * a.B * a.Hkv * a.K * a.Dh,
-                             (long long)a.B * a.Vr, cap, cap, cap};
-  float* at[9];
+                             (long long)a.B * a.Vr, cap, cap, cap,
+                             (long long)a.B * a.H * a.Dh / 2};
+  float* at[10];
   long long used = 0;
-  for (int i = 0; i < 9; ++i) {
+  for (int i = 0; i < 10; ++i) {
     at[i] = static_cast<float*>(p[kScratch]) + used;
     used += (parts[i] + 3) / 4 * 4;
   }
@@ -1032,6 +1144,7 @@ extern "C" int fts_fast_decode_frame(void* const* p, const int* d, float eps, vo
   a.cand_v = at[6];
   a.cand_i = reinterpret_cast<int*>(at[7]);
   a.smax = at[8];
+  a.obuf = reinterpret_cast<__nv_bfloat16*>(at[9]);
   a.clock = static_cast<unsigned long long*>(p[kClock]);
   a.skip = static_cast<const unsigned char*>(p[kSkip]);
   a.trace = static_cast<int8_t*>(p[kTrace]);

@@ -646,7 +646,8 @@ class DecodeGraph:
 
 # each kernel's launch counter: (module, attribute)
 _COUNTERS = ((sampler_kernel, "launches"), (slow_stack, "launches"),
-             (slow_stack, "headless_launches"), (fast_decoder, "launches"))
+             (slow_stack, "headless_launches"), (fast_decoder, "launches"),
+             (fast_decoder, "launches_spread"))
 
 
 def launch_counts() -> list[int]:

@@ -22,7 +22,9 @@ the s8 x s8 products sum exactly in integers; the embedding stays exact.
 
 ``fast_decode_frame`` launches the CUDA kernel (``csrc/fast_decoder.cu``:
 one cooperative launch per frame, phases separated by grid-wide barriers;
-the ``"s8"`` mode its own instantiation, counted in ``launches_s8``)
+the ``"s8"`` mode its own instantiation, counted in ``launches_s8``; at
+B >= 2 the ``"value"`` mode spreads each position's attention over the
+grid, one (stream, query head) per warp, counted in ``launches_spread``)
 for CUDA tensors and runs ``fast_decode_frame_plain`` for CPU tensors only.
 The weights are checked and converted once per parameter set, and the
 kernel's scratch is allocated once per shape.  Both take an optional
@@ -57,6 +59,7 @@ BLOCKS_PER_SM = 4  # 2048 threads per SM over 512 per block: the most the grid c
 
 launches = 0  # kernel launches, for showing that a run went through it
 launches_s8 = 0  # the same for the "s8" variant
+launches_spread = 0  # the "value" launches at B >= 2, whose attention is spread over the grid
 
 # The Pallas kernel's ways of feeding its int8 weights to the products (JAX
 # fast_decoder.py:98): "scratch" and "value" dequantize the weights exactly
@@ -316,7 +319,7 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         return fast_decode_frame_plain(params, cfg, rope_fast, h_fast, a0, prev_rows,
                                        gumbel, temperature, top_p, repetition_penalty,
                                        window=window, skip=skip, dequant=dequant)
-    global launches, launches_s8
+    global launches, launches_s8, launches_spread
     B, D = h_fast.shape
     K, Vr, L = cfg.num_codebooks, cfg.residual_codebook_size, cfg.n_fast_layer
     H, Hkv, Dh = cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim
@@ -352,10 +355,11 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
     cand_cap = BLOCKS_PER_SM * kernels.num_sms(dev) * B
     # one scratch buffer, carved by the kernel's entry: residual stream,
     # qkv, SwiGLU hidden, per-frame K and V caches, head logits, each
-    # block's best score and lane, and the "s8" variant's per-block maxima of
-    # the SwiGLU rows; each part rounded up to 4 floats
+    # block's best score and lane, the "s8" variant's per-block maxima of
+    # the SwiGLU rows, and the spread attention's bf16 output (B, H * Dh, two
+    # to a float); each part rounded up to 4 floats
     parts = (B * D, B * (H + 2 * Hkv) * Dh, B * I, L * B * Hkv * K * Dh,
-             L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap, cand_cap)
+             L * B * Hkv * K * Dh, B * Vr, cand_cap, cand_cap, cand_cap, B * H * Dh // 2)
     n_scratch = sum(-(-n // 4) * 4 for n in parts)
     key = (dev, B, K, L, D, H, Hkv, Dh, I, Vr)
     scratch = _scratch.get(key)
@@ -384,4 +388,5 @@ def fast_decode_frame(params: Params, cfg: DualARConfig, rope_fast, h_fast, a0, 
         launches_s8 += 1
     else:
         launches += 1
+        launches_spread += int(B >= 2)
     return codes, logits
