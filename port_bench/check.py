@@ -26,6 +26,14 @@ those that sample.
   ``max_new_tokens``, and PCM samples off ``frames x frame_length``
   (exact: limit 0; PCM of the greedy requests).
 
+The reference LM is the module ``reference/<stem>.py`` that the
+configuration names under ``"reference"`` (``dual_ar``, the stand-ins',
+without the key): its ``DualAR``, and its ``lm_specs`` where it has one
+for the weights.  The module states what it computes (``SIZES``,
+``FLAGS``); :func:`refuse` stops a run whose configuration sets anything
+else, before the program is built.  The sampling rules, the prompt and
+the codec's reference are shared.
+
 A control puts the reference in the program's place at a lower precision
 (the configuration's ``control``): at every position of the same prompts
 and frames it reads the gap of the token that the lower precision puts
@@ -35,16 +43,43 @@ the reference's; :func:`verdict` judges it as it judges the program.
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
 from port_bench.reference.dac import DAC
-from port_bench.reference.dual_ar import DualAR, sampled_gaps, served_gaps
+from port_bench.reference.dual_ar import sampled_gaps, served_gaps
 from port_bench.drive import SAMPLE_FRAMES as MIN_FRAMES
 from port_bench.reference.prompt import prompt_matrix
 from port_bench.reference.sampling import request_key
 
 MOST = 6  # requests in the sample at most; it stops once it holds MIN_FRAMES frames
+
+
+def reference(config: dict):
+    """The LM reference module that ``config`` names (``"reference"``,
+    default ``dual_ar``): ``reference/<stem>.py``."""
+    return importlib.import_module(f"port_bench.reference.{config.get('reference', 'dual_ar')}")
+
+
+def refuse(config: dict) -> None:
+    """Raise, naming each key, when the configuration's ``model`` holds a
+    key that its reference does not read, or leaves out or sets otherwise
+    a flag that the reference computes at one value only."""
+    ref = reference(config)
+    model = config["model"]
+    bad = [f"{k} (it reads no such key)" for k in model
+           if k not in ref.FLAGS and k not in ref.SIZES]
+    for k, v in ref.FLAGS.items():
+        if k not in model:
+            bad.append(f"{k} left out (it computes {v!r} only)")
+        elif model[k] != v:
+            bad.append(f"{k} = {model[k]!r} (it computes {v!r} only)")
+    if bad:
+        raise ValueError(f"configuration {config.get('name')!r}: its reference "
+                         f"{config.get('reference', 'dual_ar')!r} does not compute "
+                         + "; ".join(bad))
 
 
 def frames_of(rec) -> int:
@@ -75,7 +110,7 @@ class Judge:
     def __init__(self, lm_params, codec_params, config: dict, ids, lm_mode: str,
                  codec_mode: str = "bf16"):
         self.ids = ids
-        self.lm = DualAR(lm_params, config["model"], ids, lm_mode)
+        self.lm = reference(config).DualAR(lm_params, config["model"], ids, lm_mode)
         self.codec = DAC(codec_params, config["codec"], codec_mode)
 
 

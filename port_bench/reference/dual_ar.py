@@ -31,6 +31,19 @@ import torch
 
 from port_bench.reference import sampling as S
 
+# What this reference computes: the model keys it reads as sizes, and the
+# flags it computes at the one value each may take.  The harness refuses a
+# configuration whose ``model`` holds another key or another value
+# (``check.refuse``).
+SIZES = ("vocab_size", "n_layer", "n_head", "n_local_heads", "dim", "head_dim",
+         "intermediate_size", "rope_base", "norm_eps", "max_seq_len", "codebook_size",
+         "num_codebooks", "n_fast_layer", "fast_dim", "fast_n_head", "fast_n_local_heads",
+         "fast_head_dim", "fast_intermediate_size", "residual_codebook_size")
+FLAGS = {"model_type": "dual_ar", "tie_word_embeddings": True, "attention_qkv_bias": False,
+         "attention_o_bias": False, "attention_qk_norm": False,
+         "fast_attention_qkv_bias": False, "fast_attention_o_bias": False,
+         "fast_attention_qk_norm": False, "scale_codebook_embeddings": False}
+
 QUANT_KEYS = ("wqkv", "wo", "w1", "w3", "w2")
 FP8_MAX = 448.0
 WEIGHTS = {"w8a8": "int8"}  # a mode's rounding of the weights, where it has its own name

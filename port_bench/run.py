@@ -6,8 +6,10 @@ The cell, its configuration (``configs/<name>.json``) and its traffic mix
 (``traffic/<name>.json``) are found by the names in ``BENCHMARK.json``, the
 metrics of the line by theirs (``metrics/<name>.py``).  A run:
 
-1. makes the weights on the card from the seed and builds ``FishTTS`` on
-   them (the kernels' build is cached under ``build/`` in the checkout);
+1. refuses a configuration that its LM reference does not compute
+   (``check.refuse``), makes the weights on the card from the seed, as the
+   reference lists them, and builds ``FishTTS`` on them (the kernels'
+   build is cached under ``build/`` in the checkout);
 2. drives the mix (``drive.py``), warming every shape it will meet first;
    set-up ends when the window opens;
 3. measures for ``--seconds`` (``--trace 1``: the last ``TRACE_S`` seconds
@@ -152,10 +154,20 @@ def build_program(config: dict, seed: int, device, tmp: Path):
            if k in vfields},
         quantizer_transformer=VocoderTransformerConfig(**v["quantizer_transformer"]))
     dtype = weight_dtype(config)
-    params = weights.lm(m, seed, ids.semantic_begin, device, dtype)
+    params = lm_weights(config, seed, ids, device)
     vparams = weights.codec(v, seed, device, dtype)
     return FishTTS(device=device.type, precision=config["precision"], warmup=False,
                    _testing_bundle=(cfg, params, tokenizer, vcfg, vparams)), ids
+
+
+def lm_weights(config: dict, seed: int, ids, device) -> dict:
+    """The LM's seeded weights, drawn as the configuration's reference
+    lists them (its ``lm_specs``, where it has one)."""
+    from port_bench import check, weights
+
+    specs = getattr(check.reference(config), "lm_specs", weights.lm_specs)
+    return weights.lm(config["model"], seed, ids.semantic_begin, device, weight_dtype(config),
+                      specs)
 
 
 def weight_dtype(config: dict):
@@ -179,7 +191,9 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float, trace: bool, devi
     from port_bench.trace import Tracer, breakdown
     from port_bench.traffic import Traffic
 
-    config = config_of(config or load_json("configs", cell["config"]))
+    config = config or load_json("configs", cell["config"])
+    check.refuse(config)
+    config = config_of(config)
     spec = dict(traffic_spec or load_json("traffic", cell["traffic"]))
     if rate is not None:
         spec["rate_per_s"] = rate
@@ -242,7 +256,7 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float, trace: bool, devi
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     f32_only()
-    lm_w = weights.lm(m, seed, ids.semantic_begin, dev, weight_dtype(config))
+    lm_w = lm_weights(config, seed, ids, dev)
     codec_w = weights.codec(v, seed, dev, weight_dtype(config))
     ref = check.Judge(lm_w, codec_w, config, ids, config["precision"])
     controls = {}

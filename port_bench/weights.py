@@ -2,10 +2,11 @@
 
 Every random leaf is a slice of one ``torch.randn`` buffer drawn by a
 ``torch.Generator`` on the device, in the dtype the model is served in, and
-scaled in place; norms and layer scales are constants.  The same seed gives
-the same weights on the same device.  The trees are the parameter layout
-``FishTTS`` takes (linear LM weights ``(out, in)``; the codec's convs
-``(O, I/groups, K)``, transposed convs ``(I, O, K)``, linear ``(in, out)``).
+scaled (and shifted, where its spec gives a mean) in place; norms and layer
+scales are constants.  The same seed gives the same weights on the same
+device.  The trees are the parameter layout ``FishTTS`` takes (linear LM
+weights ``(out, in)``; the codec's convs ``(O, I/groups, K)``, transposed
+convs ``(I, O, K)``, linear ``(in, out)``).
 
 The tied embedding's semantic rows are drawn with ``semantic_std``, wider
 than the other rows' ``std``: then the head, as a trained S1-mini does
@@ -21,7 +22,8 @@ import math
 
 import torch
 
-# (path, shape, init): init is ("normal", std), ("const", value)
+# (path, shape, init): init is ("normal", std), ("normal", std, mean) or
+# ("const", value)
 Spec = tuple[tuple, tuple, tuple]
 
 
@@ -145,6 +147,8 @@ def make(specs: list[Spec], seed: int, device, dtype) -> dict:
         if init[0] == "normal":
             n = math.prod(shape)
             leaf = buf[off:off + n].view(shape).mul_(init[1])
+            if len(init) > 2:
+                leaf.add_(init[2])
             off += n
         else:
             leaf = torch.full(shape, init[1], device=device, dtype=dtype)
@@ -155,9 +159,12 @@ def make(specs: list[Spec], seed: int, device, dtype) -> dict:
     return _lists(tree)
 
 
-def lm(cfg: dict, seed: int, semantic_begin: int, device, dtype=torch.bfloat16) -> dict:
-    """The LM's weights; the semantic rows of the tied table widened."""
-    params = make(lm_specs(cfg), 2 * seed, device, dtype)
+def lm(cfg: dict, seed: int, semantic_begin: int, device, dtype=torch.bfloat16,
+       specs=lm_specs) -> dict:
+    """The LM's weights as ``specs(cfg)`` lists them (a reference module's
+    own ``lm_specs``, where it has one); the semantic rows of the tied
+    table widened."""
+    params = make(specs(cfg), 2 * seed, device, dtype)
     rows = params["embeddings"][semantic_begin:semantic_begin + cfg["codebook_size"]]
     rows.mul_(cfg["semantic_std"] / cfg["init_std"])
     return params
