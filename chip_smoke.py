@@ -87,6 +87,12 @@ printing its own lines; any failure raises and the script exits non-zero:
    (``decode.DecodeGraph``) from equal copies of one state and one noise
    seed: frames, emitted flags and the whole state, KV cache included,
    bit-equal; the device and host time of a live and of a skipped frame.
+   The B = 1 prefill at each of PREFILL_CASES (buckets 64 and 512, and 128
+   behind a 300-token prefix) through ``decode.PrefillGraphs`` (a captured
+   ``decode.PrefillGraph`` replayed) against the eager ``decode.prefill``:
+   two prompts at one key, the second shorter, frames and the whole state
+   bit-equal; CUDA-event ms of each route, and ``decode.prefill_replays``
+   / ``prefill_eager``.
    Then the tiny config with a forced EOS: the graph on the card against
    the CPU's eager loop, equal frames and integer state.
 5. main: first the engine at the tiny config on the card against the same
@@ -276,6 +282,8 @@ SAMPLING = (0.7, 0.8, 1.1)  # temperature, top_p, repetition penalty
 GRAPH_FRAMES = 32  # frames of each decode-graph check
 # The decode-graph checks at S1-mini width: (label, B, streams already done).
 GRAPH_CASES = (("B=1", 1, ()), ("B=4", 4, (2, 3)))
+# The prefill-graph checks at S1-mini width: (prompt bucket, prefix tokens)
+PREFILL_CASES = ((64, 0), (512, 0), (128, 300))
 # Qwen3-0.6B's block as the slow stack (its published config.json; the fast
 # stack the stand-ins'): the kernel's q/k-norm instantiation
 QWEN3_WIDTHS = dict(head_dim=128, intermediate_size=3072, rope_base=1e6, norm_eps=1e-6,
@@ -1494,9 +1502,85 @@ def graph_against_eager(params, cfg, ids, rope, case, gen, dev, **options) -> di
     return {"live_us": live_us, "skip_us": skip_us, "nodes": nodes}
 
 
+def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
+    """The B = 1 prefill through ``decode.PrefillGraphs`` (a captured graph
+    replayed) against the eager ``decode.prefill`` at each PREFILL_CASES
+    (bucket, prefix): from equal copies of one state (a prefix's random
+    cache rows below its length), two prompts at one key, the second
+    shorter, the first captured and both replayed; frames and the whole
+    state, KV cache included, bit-equal.  Then CUDA-event ms of one eager
+    prefill and one replay, and both prefill counters."""
+    import torch
+
+    from fish_tts_tpu_torch.engine import decode
+    from fish_tts_tpu_torch.engine.generate import _cache_bucket, _kv_bucket
+    from fish_tts_tpu_torch.utils.profiling import Metrics
+
+    graphs = decode.PrefillGraphs(params, cfg, ids, rope, Metrics())
+    eager0, replays0 = decode.prefill_eager, decode.prefill_replays
+    K1 = 1 + cfg.num_codebooks
+    i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+    for bucket, n_pre in PREFILL_CASES:
+        base = decode.init_state(params, cfg, 1, window=WINDOW,
+                                 max_seq_len=_cache_bucket(n_pre + bucket + 1, cfg.max_seq_len))
+        kv_pre = _kv_bucket(n_pre, READ_LEN, cfg.max_seq_len) if n_pre else 0
+        if n_pre:
+            for t in base["kv"].values():
+                t[:, :, :, :n_pre].copy_(
+                    torch.randn(t[:, :, :, :n_pre].shape, generator=gen, device=dev) * 0.5)
+            base["pos"].fill_(n_pre)
+        graphed = decode.init_state(params, cfg, 1, window=WINDOW,
+                                    max_seq_len=base["kv"]["k"].shape[3])
+        lens = (bucket - 3, bucket // 2)
+        for i, n in enumerate(lens):
+            prompt = torch.zeros((1, K1, bucket), dtype=torch.int32, device=dev)
+            prompt[0, 0, :n] = torch.randint(0, cfg.vocab_size, (n,), **i32)
+            prompt[0, 1:, :n] = torch.randint(0, cfg.codebook_size, (K1 - 1, n), **i32)
+            lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+            noise = decode.GumbelNoise(SEED + 31 + i, cfg)
+            eager = state_copy(base)
+            for t, src in zip(decode._tensors(graphed), decode._tensors(base)):
+                t.copy_(src)
+            _, f_e = decode.prefill(params, rope, eager, prompt, lengths, noise, *SAMPLING,
+                                    cfg=cfg, ids=ids, kv_bucket=kv_pre)
+            _, f_g = graphs.prefill(graphed, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
+            torch.cuda.synchronize()
+            diff = state_diff(eager, graphed)
+            if not torch.equal(f_e, f_g) or diff:
+                fail(f"prefill graph bucket {bucket} prefix {n_pre} length {n}: differs from "
+                     f"the eager prefill (frame {torch.equal(f_e, f_g)}, state {diff})")
+
+        def run(route, state):
+            state["pos"].fill_(n_pre)
+            if route == "eager":
+                decode.prefill(params, rope, state, prompt, lengths, noise, *SAMPLING, cfg=cfg,
+                               ids=ids, kv_bucket=kv_pre)
+            else:
+                graphs.prefill(state, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
+
+        e_ms = time_ms(lambda: run("eager", eager), 5)
+        g_ms = time_ms(lambda: run("graph", graphed), 5)
+        print(f"prefill graph: bucket {bucket}, prefix {n_pre} (reads {kv_pre} rows): "
+              f"prompts of {lens[0]} then {lens[1]} tokens at one key, frames and state (KV "
+              f"cache included) bit-equal to the eager prefill; one call {e_ms:.2f} ms eager, "
+              f"{g_ms:.2f} ms replayed (CUDA events, median of 5)", flush=True)
+    n = len(PREFILL_CASES)
+    replays, eager_n = decode.prefill_replays - replays0, decode.prefill_eager - eager0
+    # every call through the graphs replayed, one capture a case
+    if len(graphs._graphs) != n or replays != eager_n:
+        fail(f"prefill graph: {len(graphs._graphs)} graphs, {replays} replays for {eager_n} "
+             f"eager prefills; want {n} graphs and one replay for each")
+    print(f"prefill graph: prefill_replays {replays}, prefill_eager {eager_n} (the checks' "
+          f"and the timings' calls); {n} graphs on one memory pool", flush=True)
+    del graphs
+    torch.cuda.empty_cache()
+
+
 def phase_graph(dev) -> None:
     """The int8 kernel route at S1-mini width: GRAPH_CASES through
-    :func:`graph_against_eager`; then the tiny config's forced EOS."""
+    :func:`graph_against_eager`, PREFILL_CASES through
+    :func:`prefill_graph_against_eager`; then the tiny config's forced
+    EOS."""
     import torch
 
     from fish_tts_tpu_torch.models.dual_ar import TokenIds, make_rope_tables
@@ -1511,6 +1595,7 @@ def phase_graph(dev) -> None:
     gen.manual_seed(SEED + 11)
     for case in GRAPH_CASES:
         graph_against_eager(params, cfg, ids, rope, case, gen, dev)
+    prefill_graph_against_eager(params, cfg, ids, rope, gen, dev)
     del params
     torch.cuda.empty_cache()
     check_tiny_eos(dev)
@@ -1950,7 +2035,7 @@ def sampler_on_path(tts) -> None:
         seen.extend(counter.tolist())
         return out
 
-    with mock.patch.object(sk, "sample_slow", counted), \
+    with mock.patch.object(sk, "sample_slow", counted), eager_prefills(), \
             mock.patch.object(tts.engine, "_decode", eager_route(tts.engine)):
         tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
                        repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
@@ -1965,7 +2050,8 @@ def sampler_on_path(tts) -> None:
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count and both decode-route counters to 0."""
+    """Every kernel's launch count and the decode and prefill routes'
+    counters to 0."""
     from fish_tts_tpu_torch.engine import decode
     from fish_tts_tpu_torch.ops import fast_decoder, sampler_kernel, slow_stack
 
@@ -1974,6 +2060,7 @@ def zero_counts() -> None:
     slow_stack.headless_launches = slow_stack.launches_qk = 0
     fast_decoder.launches_s8 = 0
     decode.graph_replays = decode.eager_frames = 0
+    decode.prefill_replays = decode.prefill_eager = 0
 
 
 def kernel_counts() -> dict[str, int]:
@@ -2362,17 +2449,17 @@ def phase_stream(tts, seen, name: str) -> None:
     # synthesize through the prefix, and with the explicit reference
     suffix = engine._encode_suffix(TEXT).values.shape[1]
     prefills = []
-    real_prefill = decode.prefill
+    real_prefill = decode.PrefillGraphs.prefill
 
-    def spy(params, rope, state, prompt, lengths, *a, **k):
+    def spy(graphs, state, prompt, lengths, *a, **k):
         prefills.append((int(lengths[0]), int(state["pos"][0])))
-        return real_prefill(params, rope, state, prompt, lengths, *a, **k)
+        return real_prefill(graphs, state, prompt, lengths, *a, **k)
 
     fps = {}
     for label, refs in (("the stored reference (prefix)", None),
                         ("references=[profile]", [profile])):
         tts.synthesize(TEXT, references=refs, max_tokens=MAX_TOKENS)  # warm: graph captures
-        with mock.patch.object(decode, "prefill", spy):
+        with mock.patch.object(decode.PrefillGraphs, "prefill", spy):
             synthesize_once(tts, seen, f"{name} synthesize with {label}", references=refs)
         fps[label] = seen["fps"]
     (len_p, off_p), (len_e, off_e) = prefills
@@ -2703,7 +2790,7 @@ class ServeRecorder:
         self.captures: list[float] = []
         srv, rec = sess._srv, self
         lm_step, step = srv.step, sess.step
-        prefill, graph_cls = decode.prefill, decode.DecodeGraph
+        prefill, graph_cls = decode.PrefillGraphs.prefill, decode.DecodeGraph
 
         def recorded_lm_step():
             events = lm_step()
@@ -2720,9 +2807,9 @@ class ServeRecorder:
             rec.rounds.append((a, b))
             return events
 
-        def counted_prefill(params, rope, state, *a, **k):
+        def counted_prefill(graphs, state, *a, **k):
             rec.prefills.append(state["frame"].shape[0])
-            return prefill(params, rope, state, *a, **k)
+            return prefill(graphs, state, *a, **k)
 
         class CheckedGraph(graph_cls):
             def __init__(self, params, cfg, ids, rope, state, **kw):
@@ -2743,7 +2830,7 @@ class ServeRecorder:
 
         srv.step, sess.step = recorded_lm_step, timed_step
         self._unwrap = lambda: (vars(srv).pop("step"), vars(sess).pop("step"))
-        self._patches = [mock.patch.object(decode, "prefill", counted_prefill),
+        self._patches = [mock.patch.object(decode.PrefillGraphs, "prefill", counted_prefill),
                          mock.patch.object(decode, "DecodeGraph", CheckedGraph)]
         for p in self._patches:
             p.start()
@@ -2896,7 +2983,19 @@ class DecisionLog:
                               (fast_decoder, "fast_decode_frame", rec_fast),
                               (decode, "sample", rec_plain)):
             stack.enter_context(mock.patch.object(obj, name, fn))
+        stack.enter_context(eager_prefills())
         return stack
+
+
+def eager_prefills():
+    """A context in which every prefill runs the eager ``decode.prefill``:
+    a prefill graph's replay passes none of the Python hooks that record
+    decisions, and a capture under them would read back inside it.  The
+    eager prefill's frames and state are bit-equal to the replay's
+    (:func:`prefill_graph_against_eager`)."""
+    from fish_tts_tpu_torch.engine import decode
+
+    return mock.patch.object(decode, "eager_because", lambda *a: "hooks")
 
 
 def eager_session(tts, slots: int):
@@ -3345,7 +3444,8 @@ def phase_long(tts) -> None:
     warm_s = time.perf_counter() - t
 
     calls, prefills, forks = [], [], []
-    real_gen, real_prefill, real_fork = engine.generate_long, decode.prefill, engine._fork_prefix
+    real_gen, real_fork = engine.generate_long, engine._fork_prefix
+    real_prefill = decode.PrefillGraphs.prefill
 
     def gen_spy(text, **k):
         codes = []
@@ -3356,9 +3456,9 @@ def phase_long(tts) -> None:
                 codes.append(r.codes)
             yield r
 
-    def prefill_spy(params, rope, state, prompt, lengths, *a, **k):
+    def prefill_spy(graphs, state, prompt, lengths, *a, **k):
         prefills.append(int(lengths[0]))
-        return real_prefill(params, rope, state, prompt, lengths, *a, **k)
+        return real_prefill(graphs, state, prompt, lengths, *a, **k)
 
     def fork_spy(*a, **k):
         forks.append(1)
@@ -3384,7 +3484,7 @@ def phase_long(tts) -> None:
 
     engine.generate_long, engine._fork_prefix = gen_spy, fork_spy
     try:
-        with mock.patch.object(decode, "prefill", prefill_spy):
+        with mock.patch.object(decode.PrefillGraphs, "prefill", prefill_spy):
             pcm, first, wall = run()
             per_call = [sum(c.shape[1] for c in call[4]) for call in calls]
             frames = sum(per_call)

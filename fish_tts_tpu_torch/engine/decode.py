@@ -3,7 +3,9 @@
 Port of ``fish_tts_tpu/engine/decode.py``:
 
 - ``prefill``: the whole (bucket-padded) prompt through the plain PyTorch
-  transformer stack, writing the KV cache, then the first frame sampled;
+  transformer stack, writing the KV cache, then the first frame sampled,
+  launched op by op (:func:`prefill_body` after the sampling columns and
+  noise keys are loaded);
 - ``decode_frame``: one frame on the state's device tensors alone: embed
   the last frame, run the slow stack against the cache, sample the next
   frame, and update the state in place.  It reads nothing back to the host,
@@ -12,7 +14,14 @@ Port of ``fish_tts_tpu/engine/decode.py``:
   (the CPU's route, and the reference the graph is held against);
 - ``DecodeGraph``: one ``decode_frame`` captured in a CUDA graph on a
   persistent state and replayed once per frame (the engine's route on the
-  card): the host pays one graph launch per frame and reads nothing back.
+  card): the host pays one graph launch per frame and reads nothing back;
+- ``PrefillGraph``: :func:`prefill_body` at B = 1 captured in a CUDA graph
+  on a persistent state at one prompt bucket and cache read bound, replayed
+  for each later prefill there from static input buffers that every replay
+  rewrites whole.  ``PrefillGraphs`` is one owner's set of them (the
+  engine's, a serving pool's), all on one graph memory pool: it replays
+  where that is safe (a CUDA state, no mesh, B = 1, the default noise) and
+  runs the eager ``prefill`` everywhere else.
 
 Routes.  Each frame has three parts, each on its kernel or on plain
 PyTorch, decided per call by the reference's gates (:func:`route`, from the
@@ -90,9 +99,12 @@ WINDOW = 16  # default repetition-penalty window
 PREFILL_STEP = 0x7FFFFFFF  # noise step of the prefill frame
 
 # Frames run by the eager loop and frames replayed from a captured graph,
-# for showing which route a run took.
+# and the same for prefills (calls of ``prefill``, replays of a
+# ``PrefillGraph``), for showing which route a run took.
 eager_frames = 0
 graph_replays = 0
+prefill_eager = 0
+prefill_replays = 0
 
 RES_K = 256  # residual-book candidates when top_k > 0 (the JAX package's res_k)
 
@@ -387,10 +399,26 @@ def prefill(params: Params, rope: Params, state: State, prompt: torch.Tensor,
     sampling parameters and the noise keys into the state for the frames
     that follow.  ``top_k``, ``approx`` and ``fast_kernel`` choose the
     frame's route (:func:`route`).  Returns (state, frame (B, 1+K))."""
-    B, _, Tb = prompt.shape
-    dev = prompt.device
+    global prefill_eager
     set_sampling(state, temperature, top_p, repetition_penalty)
     host_noise = set_noise(state, noise)
+    frame = prefill_body(params, cfg, ids, rope, state, prompt, lengths, host_noise,
+                         kv_bucket=kv_bucket, top_k=top_k, approx=approx,
+                         fast_kernel=fast_kernel)
+    prefill_eager += 1
+    return state, frame
+
+
+def prefill_body(params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params, state: State,
+                 prompt: torch.Tensor, lengths: torch.Tensor, noise: HostNoise | None = None,
+                 *, kv_bucket: int | None, top_k: int = -1, approx: bool = False,
+                 fast_kernel: bool = True) -> torch.Tensor:
+    """:func:`prefill` after the sampling columns and noise keys are in the
+    state: device tensors in and out, nothing read back (with ``noise``
+    None, the default draws), so a CUDA graph can hold it.  Returns the
+    frame (B, 1+K)."""
+    B, _, Tb = prompt.shape
+    dev = prompt.device
     S = state["kv"]["k"].shape[3]
     offset = state["pos"].long()
     R = S if kv_bucket is None else kv_bucket
@@ -416,13 +444,13 @@ def prefill(params: Params, rope: Params, state: State, prompt: torch.Tensor,
     rt = route(cfg, params, B, W, top_k=top_k, approx=approx, fast_kernel=fast_kernel)
     zeros = functools.partial(torch.zeros, dtype=torch.int32, device=dev)
     frame = _sample_frame(params, cfg, ids, rope, rt,
-                          _draw(cfg, state, host_noise, step, rt.draws(cfg)),
+                          _draw(cfg, state, noise, step, rt.draws(cfg)),
                           hidden_last, logits, (temp, tp, no_penalty), zeros((B, 1)),
                           zeros((B, cfg.num_codebooks - 1, W)))
     state["frame"].copy_(frame)
     state["pos"].copy_(offset + lengths.long().to(dev))
     state["done"] |= frame[:, 0] == ids.im_end
-    return state, frame
+    return frame
 
 
 class _Ring:
@@ -595,33 +623,12 @@ class DecodeGraph:
     def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
                  state: State, *, kv_bucket: int | None, skip_done: bool, capacity: int,
                  **options):
-        dev = state["frame"].device
-        if dev.type != "cuda":
-            raise ValueError("DecodeGraph: the state must be on a CUDA device")
         B, K1 = state["frame"].shape
-        self.ring = _Ring(B, capacity, K1, dev)
+        self.ring = _Ring(B, capacity, K1, state["frame"].device)
         frame = functools.partial(decode_frame, params, cfg, ids, rope, state, None,
                                   kv_bucket=kv_bucket, skip_done=skip_done, ring=self.ring,
                                   **options)
-        saved = [t.clone() for t in _tensors(state)]
-        counts = launch_counts()
-        with torch.no_grad():
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                frame()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(self.graph):
-                frame()
-            self._launches = [n - m for n, m in zip(launch_counts(), before)]
-            # the warm-up frame is undone and the capture only records its
-            # launches: neither counts
-            for (m, name), n in zip(_COUNTERS, counts):
-                setattr(m, name, n)
-            for t, old in zip(_tensors(state), saved):
-                t.copy_(old)
+        self.graph, _, self._launches = _capture(state, frame)
         # what the graph reads must outlive it
         self._keep = (params, rope, slow_stack._prepared, fast_decoder._prepared)
 
@@ -642,6 +649,145 @@ class DecodeGraph:
         if len(frames) == 1:
             return frames[0], emitted[0]
         return torch.cat(frames, dim=1), torch.cat(emitted, dim=1)
+
+
+class PrefillGraph:
+    """:func:`prefill_body` at B = 1 captured in a CUDA graph on ``state``
+    at prompt bucket ``bucket`` and cache read bound ``kv_bucket``, and
+    replayed once per prefill.
+
+    The graph reads the prompt from static buffers, ``prompt`` (1, 1+K,
+    bucket) and ``lengths`` (1,), which :meth:`run` rewrites whole, zero
+    padding included, before each replay, and it reads the state's
+    position (the offset a forked prefix left), sampling columns and noise
+    keys, loaded before the replay.  It launches the kernels the eager
+    prefill launches, on the same inputs, on the route ``options`` fix at
+    capture.  Its temporaries come from ``pool``, a graph memory pool that
+    the graphs of one owner share, replayed one at a time in stream order.
+    Capture, warm-up and launch counts as in :class:`DecodeGraph`."""
+
+    def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
+                 state: State, bucket: int, *, kv_bucket: int | None, pool=None, **options):
+        dev = state["frame"].device
+        self.prompt = torch.zeros((1, 1 + cfg.num_codebooks, bucket), dtype=torch.int32,
+                                  device=dev)
+        self.lengths = torch.ones((1,), dtype=torch.int32, device=dev)
+        body = functools.partial(prefill_body, params, cfg, ids, rope, state, self.prompt,
+                                 self.lengths, kv_bucket=kv_bucket, **options)
+        self.graph, self._frame, self._launches = _capture(state, body, pool)
+        self._keep = (params, rope, slow_stack._prepared, fast_decoder._prepared)
+
+    def run(self, prompt: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """One prefill of ``prompt`` (1, 1+K, bucket) with real length
+        ``lengths`` (1,), both on the device.  Returns the frame (1, 1+K), a
+        copy of the graph's output made right after the replay."""
+        global prefill_replays
+        self.prompt.copy_(prompt)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        prefill_replays += 1
+        add_launches(self._launches)
+        return self._frame.clone()
+
+
+def eager_because(params: Params, state: State, batch: int, noise) -> str | None:
+    """Why a prefill must run the eager :func:`prefill`, or None where a
+    :class:`PrefillGraph` can hold it: parameters on a mesh, more than one
+    row, a host noise source (drawn per call on the host), a state off the
+    card."""
+    if isinstance(params, MeshParams):
+        return "mesh"
+    if batch != 1:
+        return "batch"
+    if not isinstance(noise, GumbelNoise):
+        return "host noise"
+    if state["frame"].device.type != "cuda":
+        return "device"
+    return None
+
+
+class PrefillGraphs:
+    """One owner's prefills (the engine's, a serving pool's): a
+    :class:`PrefillGraph` per (state object, prompt bucket, ``kv_bucket``,
+    cache dtype, route), made at first use inside a ``graph.capture`` span
+    of ``metrics``, every one on one graph memory pool; the eager
+    :func:`prefill` where :func:`eager_because` gives a reason.  The states
+    must be persistent: a graph holds its state's addresses (and keeps it
+    alive).  ``options`` are :func:`route`'s."""
+
+    def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
+                 metrics, **options):
+        self.params, self.cfg, self.ids, self.rope = params, cfg, ids, rope
+        self.metrics, self.options = metrics, options
+        self._graphs: dict[tuple, PrefillGraph] = {}
+        self._pool = None
+
+    @torch.no_grad()
+    def prefill(self, state: State, prompt: torch.Tensor, lengths: torch.Tensor, noise,
+                temperature, top_p, repetition_penalty, *, kv_bucket: int | None):
+        """:func:`prefill` on this owner's route.  Returns (state, frame)."""
+        params, cfg = self.params, self.cfg
+        if eager_because(params, state, prompt.shape[0], noise) is not None:
+            return prefill(params, self.rope, state, prompt, lengths, noise, temperature,
+                           top_p, repetition_penalty, cfg=cfg, ids=self.ids,
+                           kv_bucket=kv_bucket, **self.options)
+        set_sampling(state, temperature, top_p, repetition_penalty)
+        set_noise(state, noise)
+        bucket = prompt.shape[2]
+        key = (id(state), bucket, kv_bucket, state["kv"]["k"].dtype,
+               route(cfg, params, 1, state["prev"].shape[2], **self.options))
+        graph = self._graphs.get(key)
+        if graph is None:
+            with self.metrics.span("graph.capture"):
+                graph = self._graphs[key] = PrefillGraph(
+                    params, cfg, self.ids, self.rope, state, bucket, kv_bucket=kv_bucket,
+                    pool=self._pool, **self.options)
+            # the first graph's pool is every later one's
+            self._pool = graph.graph.pool()
+        return state, graph.run(prompt, lengths)
+
+
+def _capture(state: State, fn, pool=None):
+    """``fn`` captured in a CUDA graph on ``state``: one eager call on a
+    side stream first (the kernels' first-use setup), then the capture on
+    it (from ``pool`` when given), then the state restored.  The host waits
+    for nothing: ``torch.cuda.graph`` would first synchronize the device
+    and empty the allocator's caches, which the capture does not need and
+    which, mid-serving, waits for the work in flight and makes every later
+    allocation anew.  Neither call counts in the kernels' launch counters.
+    Returns (the graph, ``fn``'s output in the capture, the launches a
+    replay makes in :func:`launch_counts` order)."""
+    dev = state["frame"].device
+    if dev.type != "cuda":
+        raise ValueError("a captured graph needs its state on a CUDA device")
+    saved = [t.clone() for t in _tensors(state)]
+    counts = launch_counts()
+    with torch.no_grad():
+        side = _side_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            fn()
+            before = launch_counts()
+            graph.capture_begin(pool=pool)
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        launches = [n - m for n, m in zip(launch_counts(), before)]
+        for (m, name), n in zip(_COUNTERS, counts):
+            setattr(m, name, n)
+        for t, old in zip(_tensors(state), saved):
+            t.copy_(old)
+    return graph, out, launches
+
+
+@functools.cache
+def _side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The stream captures run on, one per device: what a warm-up call
+    frees stays cached for the next capture's."""
+    return torch.cuda.Stream(dev)
 
 
 # each kernel's launch counter: (module, attribute)

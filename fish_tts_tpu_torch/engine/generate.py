@@ -29,7 +29,12 @@ The engine keeps one decode state per (batch, cache allocation) and resets
 it in place for each generation.  On the card every decode frame after
 prefill is a replay of a :class:`~fish_tts_tpu_torch.engine.decode.DecodeGraph`
 captured on that state, one per (batch, cache rows, read rows, window,
-dtype, skip, route); on the CPU the same frame runs eagerly.  The route
+dtype, skip, route), and ``generate_long``'s prefill is a replay of a
+:class:`~fish_tts_tpu_torch.engine.decode.PrefillGraph` on it, one per
+(state, prompt bucket, prefix read rows, dtype, route), all on the
+engine's one graph memory pool (``decode.PrefillGraphs``); on the CPU the
+same frame and prefill run eagerly, as do ``set_prefix``'s one-off prefill
+and a batch's grouped prefills.  The route
 follows ``EngineConfig.sample_top_k``, ``approx_top_k`` and ``fast_kernel``
 through the reference's per-call gates (``decode.route``); the engine logs
 once when an option turns a kernel off.
@@ -49,8 +54,8 @@ sample also records, under a per-call id, the spans ``engine.prompt``
 (encode and pad), ``engine.prefill.launch`` (the state, the prefill and the
 first chunk's launch) and ``engine.decode.launch`` (each later chunk), and
 the request span ``engine.first_frames``, from the call's start to the host
-holding its first frames; a decode graph's capture is a ``graph.capture``
-span.
+holding its first frames; a decode or prefill graph's capture is a
+``graph.capture`` span.
 """
 
 from __future__ import annotations
@@ -214,6 +219,9 @@ class GenerationEngine:
         self._seeds = np.random.default_rng(seed)
         self._seeds_lock = threading.Lock()
         self.metrics = Metrics()
+        # generate_long's prefills: graph replays on the card
+        self._prefills = decode_mod.PrefillGraphs(params, cfg, self.ids, self.rope,
+                                                  self.metrics, **self._options)
         self._calls = itertools.count()  # the ids of generate_long's samples
         self._states: dict[tuple, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
@@ -457,10 +465,10 @@ class GenerationEngine:
             state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
                      else self._fresh_state(1, alloc))
             kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
-            _, first = decode_mod.prefill(
-                self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
+            _, first = self._prefills.prefill(
+                state, torch.as_tensor(padded, device=self.device),
                 torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
-                cfg=cfg, ids=ids, kv_bucket=kv_pre, **self._options)
+                kv_bucket=kv_pre)
             frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
                                                           device=self.device)
             if n0:

@@ -15,11 +15,15 @@ the running decode between chunks, without disturbing the other slots.
   the row into its slot in place: the KV rows below ``rows``, ``frame``,
   ``pos`` and ``done``, with ``prev`` and ``step`` zeroed and the slot's
   sampling column and noise key written.  The other slots' rows are
-  untouched and decode on in the next chunk.  JAX prefills the round's
-  requests as one group at the largest member's bucket; on the card the
-  plain prefill's GEMMs round a row differently with the group's size and
-  bucket, which would make a request's codes depend on its co-tenants,
-  while the decode kernels give a row the same bits at any batch size.
+  untouched and decode on in the next chunk.  On the card the prefill is
+  a replay of the :class:`~fish_tts_tpu_torch.engine.decode.PrefillGraph`
+  of (scratch state, bucket, prefix read rows), captured at first use
+  (a ``graph.capture`` span), on the pool's own graph memory pool.  JAX
+  prefills the round's requests as one group at the largest member's
+  bucket; on the card the plain prefill's GEMMs round a row differently
+  with the group's size and bucket, which would make a request's codes
+  depend on its co-tenants, while the decode kernels give a row the same
+  bits at any batch size.
 - Reproducibility: each request carries its own noise key, the slot-0 key
   of the source a solo ``generate_long`` would draw (``seed`` as after
   ``engine.reseed(seed)``), and the state keeps per-slot steps, so a
@@ -49,10 +53,11 @@ the last ``STATS_WINDOW_S`` seconds on the spans' clock.
 On the CPU each chunk runs the eager loop; a request may then carry a host
 noise source of its own (``prepare(noise=)``), called as ``noise(0, step,
 draws)`` for the slot it holds, as in its solo run.  On the card every
-decode frame is a graph replay and the noise is the counter-based default.
-On an engine's (dp, tp) mesh the pool's caches are sharded like the
-engine's, allocated at the full context and never resized, admission
-installs into the sharded cache, and each chunk runs the eager loop.
+decode frame and every admission's prefill is a graph replay and the noise
+is the counter-based default.  On an engine's (dp, tp) mesh the pool's
+caches are sharded like the engine's, allocated at the full context and
+never resized, admission prefills eagerly and installs into the sharded
+cache, and each chunk runs the eager loop.
 
 Events are streaming-semantics (each emitted frame, the EOS frame
 included); callers that want batch semantics drop the final frame.
@@ -166,6 +171,11 @@ class ContinuousBatcher:
         self._states: dict[int, decode_mod.State] = {}
         self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
         self._scratch: dict[int, decode_mod.State] = {}
+        # admission's prefills, graph replays on the card, on the pool's own
+        # graph memory pool
+        self._prefills = decode_mod.PrefillGraphs(engine.params, engine.cfg, engine.ids,
+                                                  engine.rope, engine.metrics,
+                                                  **engine._options)
         self._state = self._fresh_pool()
         self.allocs = [self._alloc]  # the allocations the pool went through
         # slots retired at dispatch (predictive budget retirement): the
@@ -410,11 +420,10 @@ class ContinuousBatcher:
                 padded[0, :, :req.values.shape[1]] = req.values
                 noise = (decode_mod.KeyedNoise([req.key]) if req.noise is None
                          else _RowNoise([req], cfg))
-                _, first = decode_mod.prefill(
-                    eng.params, eng.rope, scratch, to_device_async(padded, dev),
+                _, first = self._prefills.prefill(
+                    scratch, to_device_async(padded, dev),
                     to_device_async(np.array([req.values.shape[1]], np.int32), dev), noise,
-                    req.temperature, req.top_p, req.repetition_penalty, cfg=cfg, ids=eng.ids,
-                    kv_bucket=kv_pre, **eng._options)
+                    req.temperature, req.top_p, req.repetition_penalty, kv_bucket=kv_pre)
                 self._install(scratch, slot, rows)
                 self._slot_req[slot] = req
                 req.first_dev = start_fetch(first)
