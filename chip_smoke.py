@@ -88,7 +88,7 @@ printing its own lines; any failure raises and the script exits non-zero:
    seed: frames, emitted flags and the whole state, KV cache included,
    bit-equal; the device and host time of a live and of a skipped frame.
    The B = 1 prefill at each of PREFILL_CASES (buckets 64 and 512, and 128
-   behind a 300-token prefix) through ``decode.PrefillGraphs`` (a captured
+   behind a 300-token prefix) through ``decode.Runner.prefill`` (a captured
    ``decode.PrefillGraph`` replayed) against the eager ``decode.prefill``:
    two prompts at one key, the second shorter, frames and the whole state
    bit-equal; CUDA-event ms of each route, and ``decode.prefill_replays``
@@ -1503,7 +1503,7 @@ def graph_against_eager(params, cfg, ids, rope, case, gen, dev, **options) -> di
 
 
 def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
-    """The B = 1 prefill through ``decode.PrefillGraphs`` (a captured graph
+    """The B = 1 prefill through ``decode.Runner.prefill`` (a captured graph
     replayed) against the eager ``decode.prefill`` at each PREFILL_CASES
     (bucket, prefix): from equal copies of one state (a prefix's random
     cache rows below its length), two prompts at one key, the second
@@ -1513,24 +1513,23 @@ def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
     import torch
 
     from fish_tts_tpu_torch.engine import decode
-    from fish_tts_tpu_torch.engine.generate import _cache_bucket, _kv_bucket
+    from fish_tts_tpu_torch.engine.generate import cache_bucket, kv_bucket
     from fish_tts_tpu_torch.utils.profiling import Metrics
 
-    graphs = decode.PrefillGraphs(params, cfg, ids, rope, Metrics())
+    runner = decode.Runner(params, cfg, ids, rope, Metrics(), capacity=1, window=WINDOW)
     eager0, replays0 = decode.prefill_eager, decode.prefill_replays
     K1 = 1 + cfg.num_codebooks
     i32 = dict(generator=gen, device=dev, dtype=torch.int32)
     for bucket, n_pre in PREFILL_CASES:
         base = decode.init_state(params, cfg, 1, window=WINDOW,
-                                 max_seq_len=_cache_bucket(n_pre + bucket + 1, cfg.max_seq_len))
-        kv_pre = _kv_bucket(n_pre, READ_LEN, cfg.max_seq_len) if n_pre else 0
+                                 max_seq_len=cache_bucket(n_pre + bucket + 1, cfg.max_seq_len))
+        kv_pre = kv_bucket(n_pre, READ_LEN, cfg.max_seq_len) if n_pre else 0
         if n_pre:
             for t in base["kv"].values():
                 t[:, :, :, :n_pre].copy_(
                     torch.randn(t[:, :, :, :n_pre].shape, generator=gen, device=dev) * 0.5)
             base["pos"].fill_(n_pre)
-        graphed = decode.init_state(params, cfg, 1, window=WINDOW,
-                                    max_seq_len=base["kv"]["k"].shape[3])
+        graphed = runner.state(1, base["kv"]["k"].shape[3])
         lens = (bucket - 3, bucket // 2)
         for i, n in enumerate(lens):
             prompt = torch.zeros((1, K1, bucket), dtype=torch.int32, device=dev)
@@ -1543,7 +1542,7 @@ def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
                 t.copy_(src)
             _, f_e = decode.prefill(params, rope, eager, prompt, lengths, noise, *SAMPLING,
                                     cfg=cfg, ids=ids, kv_bucket=kv_pre)
-            _, f_g = graphs.prefill(graphed, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
+            _, f_g = runner.prefill(graphed, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
             torch.cuda.synchronize()
             diff = state_diff(eager, graphed)
             if not torch.equal(f_e, f_g) or diff:
@@ -1556,7 +1555,7 @@ def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
                 decode.prefill(params, rope, state, prompt, lengths, noise, *SAMPLING, cfg=cfg,
                                ids=ids, kv_bucket=kv_pre)
             else:
-                graphs.prefill(state, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
+                runner.prefill(state, prompt, lengths, noise, *SAMPLING, kv_bucket=kv_pre)
 
         e_ms = time_ms(lambda: run("eager", eager), 5)
         g_ms = time_ms(lambda: run("graph", graphed), 5)
@@ -1567,12 +1566,12 @@ def prefill_graph_against_eager(params, cfg, ids, rope, gen, dev) -> None:
     n = len(PREFILL_CASES)
     replays, eager_n = decode.prefill_replays - replays0, decode.prefill_eager - eager0
     # every call through the graphs replayed, one capture a case
-    if len(graphs._graphs) != n or replays != eager_n:
-        fail(f"prefill graph: {len(graphs._graphs)} graphs, {replays} replays for {eager_n} "
+    if len(runner._prefills) != n or replays != eager_n:
+        fail(f"prefill graph: {len(runner._prefills)} graphs, {replays} replays for {eager_n} "
              f"eager prefills; want {n} graphs and one replay for each")
     print(f"prefill graph: prefill_replays {replays}, prefill_eager {eager_n} (the checks' "
           f"and the timings' calls); {n} graphs on one memory pool", flush=True)
-    del graphs
+    del runner
     torch.cuda.empty_cache()
 
 
@@ -1894,7 +1893,7 @@ def phase_convert(tts, bundle, seen) -> None:
         # phase 5's engine with the noise the first generation after reseed(0)
         # draws, its own sequence left as it is; a fresh engine draws that first
         want = [r.codes for r in tts.engine.generate_long(
-            TEXT, noise=tts.engine._seed_noise(0), **kw) if r.action == "sample"]
+            TEXT, noise=tts.engine.seed_noise(0), **kw) if r.action == "sample"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         engine, _ = init_model(out, device="cuda", precision="int8")
@@ -1924,18 +1923,24 @@ def phase_convert(tts, bundle, seen) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def eager_route(engine):
-    """A stand-in for ``engine._decode`` that runs the eager loop on the
-    card, for measuring the graph route against it."""
+def forced_eager(prefills: bool = True):
+    """A context in which every decode chunk, and every prefill unless
+    ``prefills`` is False, runs eagerly: the one patch of
+    ``decode.eager_because``, which every runner asks.  A graph's replay
+    passes none of the Python hooks that record decisions, and a capture
+    under them would read back inside it.  The eager routes' frames and
+    states are bit-equal to the replays' (:func:`graph_against_eager`,
+    :func:`prefill_graph_against_eager`)."""
     from fish_tts_tpu_torch.engine import decode
 
-    def run(state, noise, sampling, n, kv_bucket, early_exit):
-        _, frames, emitted = decode.decode_chunk(
-            engine.params, engine.rope, state, noise, *sampling, cfg=engine.cfg, ids=engine.ids,
-            num_frames=n, kv_bucket=kv_bucket, early_exit=early_exit, **engine._options)
-        return frames, emitted
+    real = decode.eager_because
 
-    return run
+    def because(params, state, batch, noise, *, prefill):
+        if prefill and not prefills:
+            return real(params, state, batch, noise, prefill=True)
+        return "forced"
+
+    return mock.patch.object(decode, "eager_because", because)
 
 
 def decode_busy(prof, first: str, last: str) -> tuple[float, float] | None:
@@ -1971,23 +1976,24 @@ def compare_routes(tts, seen, markers=("slow_step_kernel", "fast_frame_kernel"),
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine = tts.engine
+    runner = tts.engine.runner
     host: dict[str, list[float]] = {}
+    real = runner.decode
 
-    def timed(route, fn):
-        def run(state, noise, sampling, n, *a, **k):
+    def timed(route):
+        def run(state, noise, sampling, n, **k):
             t = time.perf_counter()
-            out = fn(state, noise, sampling, n, *a, **k)
+            out = real(state, noise, sampling, n, **k)
             h = host.setdefault(route, [0.0, 0])
             h[0] += time.perf_counter() - t
             h[1] += n
             return out
         return run
 
-    routes = {"graph": timed("graph", engine._decode), "eager": timed("eager", eager_route(engine))}
-
     def call(route, max_tokens=MAX_TOKENS):
-        with mock.patch.object(engine, "_decode", routes[route]):
+        # the eager route decodes eagerly; its prefill stays the graph's
+        eager = forced_eager(prefills=False) if route == "eager" else contextlib.nullcontext()
+        with mock.patch.object(runner, "decode", timed(route)), eager:
             t = time.perf_counter()
             tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
                            repetition_penalty=SAMPLING[2], max_tokens=max_tokens)
@@ -2035,8 +2041,7 @@ def sampler_on_path(tts) -> None:
         seen.extend(counter.tolist())
         return out
 
-    with mock.patch.object(sk, "sample_slow", counted), eager_prefills(), \
-            mock.patch.object(tts.engine, "_decode", eager_route(tts.engine)):
+    with mock.patch.object(sk, "sample_slow", counted), forced_eager():
         tts.synthesize(TEXT, temperature=SAMPLING[0], top_p=SAMPLING[1],
                        repetition_penalty=SAMPLING[2], max_tokens=MAX_TOKENS)
     rounds = collections.Counter(r for r, _, _ in seen)
@@ -2101,8 +2106,7 @@ def route_counts(engine, label: str, min_replays: int, path: str, batch: int = 1
 
     launches = kernel_counts()
     replays, eager = decode.graph_replays, decode.eager_frames
-    rt = decode.route(engine.cfg, engine.params, batch, engine.engine_cfg.rep_penalty_window,
-                      **engine._options)
+    rt = engine.runner.route(batch)
     decoded = replays + eager
     want = {"sample_slow": rt.sampler * (prefills + decoded),
             **stack_counts(engine.cfg, rt.slow_stack * decoded),
@@ -2219,7 +2223,7 @@ def phase_float(dev, profile_dir=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 13)
     graph_against_eager(e.params, e.cfg, e.ids, e.rope, ("bf16 B=1", 1, ()), gen, dev,
-                        **e._options)
+                        **e.runner.options)
     # a frame of the plain route is thousands of small kernels: two calls a
     # route, and a short profiled one
     compare_routes(tts, seen, markers=("sample_slow_kernel", "sample_slow_kernel"),
@@ -2318,7 +2322,7 @@ def prefix_against_full_prompt(tts, profile, n: int) -> float:
     decode.prefill(engine.params, engine.rope, state, torch.as_tensor(padded, device=dev),
                    torch.tensor([T], dtype=torch.int32, device=dev),
                    decode.GumbelNoise(SEED, engine.cfg), *SAMPLING, cfg=engine.cfg,
-                   ids=engine.ids, kv_bucket=0, **engine._options)
+                   ids=engine.ids, kv_bucket=0, **engine.runner.options)
     prefix = engine._prefix_state["kv"]
     err = max(rel_err(prefix[k][:, :, :, :n], state["kv"][k][:, :, :, :n])[1] for k in ("k", "v"))
     del state
@@ -2426,7 +2430,7 @@ def phase_stream(tts, seen, name: str) -> None:
     from fish_tts_tpu_torch.models import vocoder, vocoder_stream
     from fish_tts_tpu_torch.models.dual_ar import cast_params
     from fish_tts_tpu_torch.ops import fast_decoder
-    from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
+    from fish_tts_tpu_torch.synthesizer import vocoder_bucket
     from fish_tts_tpu_torch.utils.audio import to_pcm_bytes
 
     spread = fast_decoder.launches_spread
@@ -2447,19 +2451,19 @@ def phase_stream(tts, seen, name: str) -> None:
           f"prefill's: rel err {kv_rel:.2e} (tol {PREFIX_KV_TOL})", flush=True)
 
     # synthesize through the prefix, and with the explicit reference
-    suffix = engine._encode_suffix(TEXT).values.shape[1]
+    suffix = engine.encode_suffix(TEXT).values.shape[1]
     prefills = []
-    real_prefill = decode.PrefillGraphs.prefill
+    real_prefill = decode.Runner.prefill
 
-    def spy(graphs, state, prompt, lengths, *a, **k):
+    def spy(runner, state, prompt, lengths, *a, **k):
         prefills.append((int(lengths[0]), int(state["pos"][0])))
-        return real_prefill(graphs, state, prompt, lengths, *a, **k)
+        return real_prefill(runner, state, prompt, lengths, *a, **k)
 
     fps = {}
     for label, refs in (("the stored reference (prefix)", None),
                         ("references=[profile]", [profile])):
         tts.synthesize(TEXT, references=refs, max_tokens=MAX_TOKENS)  # warm: graph captures
-        with mock.patch.object(decode.PrefillGraphs, "prefill", spy):
+        with mock.patch.object(decode.Runner, "prefill", spy):
             synthesize_once(tts, seen, f"{name} synthesize with {label}", references=refs)
         fps[label] = seen["fps"]
     (len_p, off_p), (len_e, off_e) = prefills
@@ -2495,7 +2499,7 @@ def phase_stream(tts, seen, name: str) -> None:
         # the codec's own spread: the joint decode in the precision's dtype and
         # in float32, against which the stream must do as well as the joint
         joint = pcm(tts._decode_codes(codes))
-        padded = np.zeros((1, codes.shape[0], _vocoder_bucket(codes.shape[1])), np.int64)
+        padded = np.zeros((1, codes.shape[0], vocoder_bucket(codes.shape[1])), np.int64)
         padded[0, :, :codes.shape[1]] = codes
         ref32 = pcm(vocoder.dac_decode(vp32, vcfg, torch.as_tensor(padded, device=tts.device))[
             0, 0, :len(joint)].cpu().numpy())
@@ -2733,7 +2737,7 @@ def phase_batch(tts, name: str) -> dict:
     engine = tts.engine
     tokens = BATCH_EAGER_TOKENS[name]
     graph = batch_codes(engine, 4, tokens)
-    with mock.patch.object(engine, "_decode", eager_route(engine)):
+    with forced_eager(prefills=False):
         eager = batch_codes(engine, 4, tokens)
     if not all(g.shape == e.shape and np.array_equal(g, e) for g, e in zip(graph, eager)):
         fail(f"batch {name} B=4: the graph route's codes differ from the eager loop's")
@@ -2790,7 +2794,7 @@ class ServeRecorder:
         self.captures: list[float] = []
         srv, rec = sess._srv, self
         lm_step, step = srv.step, sess.step
-        prefill, graph_cls = decode.PrefillGraphs.prefill, decode.DecodeGraph
+        prefill, graph_cls = decode.Runner.prefill, decode.DecodeGraph
 
         def recorded_lm_step():
             events = lm_step()
@@ -2807,9 +2811,9 @@ class ServeRecorder:
             rec.rounds.append((a, b))
             return events
 
-        def counted_prefill(graphs, state, *a, **k):
+        def counted_prefill(runner, state, *a, **k):
             rec.prefills.append(state["frame"].shape[0])
-            return prefill(graphs, state, *a, **k)
+            return prefill(runner, state, *a, **k)
 
         class CheckedGraph(graph_cls):
             def __init__(self, params, cfg, ids, rope, state, **kw):
@@ -2830,7 +2834,7 @@ class ServeRecorder:
 
         srv.step, sess.step = recorded_lm_step, timed_step
         self._unwrap = lambda: (vars(srv).pop("step"), vars(sess).pop("step"))
-        self._patches = [mock.patch.object(decode.PrefillGraphs, "prefill", counted_prefill),
+        self._patches = [mock.patch.object(decode.Runner, "prefill", counted_prefill),
                          mock.patch.object(decode, "DecodeGraph", CheckedGraph)]
         for p in self._patches:
             p.start()
@@ -2983,37 +2987,8 @@ class DecisionLog:
                               (fast_decoder, "fast_decode_frame", rec_fast),
                               (decode, "sample", rec_plain)):
             stack.enter_context(mock.patch.object(obj, name, fn))
-        stack.enter_context(eager_prefills())
+        stack.enter_context(forced_eager())
         return stack
-
-
-def eager_prefills():
-    """A context in which every prefill runs the eager ``decode.prefill``:
-    a prefill graph's replay passes none of the Python hooks that record
-    decisions, and a capture under them would read back inside it.  The
-    eager prefill's frames and state are bit-equal to the replay's
-    (:func:`prefill_graph_against_eager`)."""
-    from fish_tts_tpu_torch.engine import decode
-
-    return mock.patch.object(decode, "eager_because", lambda *a: "hooks")
-
-
-def eager_session(tts, slots: int):
-    """A session of ``slots`` whose pool decodes on the eager loop."""
-    from fish_tts_tpu_torch.engine import decode
-
-    sess = tts.serve(slots=slots, warmup=False)
-    srv, engine = sess._srv, tts.engine
-
-    def eager_pool(kv_b):
-        _, frames, emitted = decode.decode_chunk(
-            engine.params, engine.rope, srv._state, None, *srv._state["sampling"],
-            cfg=engine.cfg, ids=engine.ids, num_frames=srv.chunk, kv_bucket=kv_b,
-            early_exit=True, **engine._options)
-        return frames, emitted
-
-    srv._decode = eager_pool
-    return sess
 
 
 def first_decision(entry: dict) -> list:
@@ -3141,10 +3116,8 @@ def phase_serve(tts, name: str) -> None:
     spread = fast_decoder.launches_spread - spread0
     replays, eager = decode.graph_replays, decode.eager_frames
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    W = tts.engine.engine_cfg.rep_penalty_window
 
-    def rt(B):
-        return decode.route(tts._cfg, tts.engine.params, B, W, **tts.engine._options)
+    rt = tts.engine.runner.route
 
     pool = rt(slots)
     want = {"sample_slow": pool.sampler * replays + sum(rt(g).sampler for g in rec.prefills),
@@ -3200,7 +3173,7 @@ def phase_serve(tts, name: str) -> None:
     if solo_diff:
         # held as knife edges: the served run again on the eager loop, then
         # each differing request's solo run, every decision recorded
-        served_log, replay = DecisionLog(), eager_session(tts, slots)
+        served_log, replay = DecisionLog(), tts.serve(slots=slots, warmup=False)
         replayed = ServeRecorder(replay)
         with served_log.recording():
             r_ids = drive_serve(replay, reqs, waves, cancel)[0]
@@ -3210,10 +3183,9 @@ def phase_serve(tts, name: str) -> None:
             fail(f"{label}: the eager loop does not repeat the served codes")
         for i in solo_diff:
             text, kw = reqs[i]
-            key = tts.engine._seed_noise(kw["seed"]).slot_keys([0])[0]
+            key = tts.engine.seed_noise(kw["seed"]).slot_keys([0])[0]
             log = DecisionLog()
-            with log.recording(), mock.patch.object(tts.engine, "_decode",
-                                                    eager_route(tts.engine)):
+            with log.recording():
                 again = solo_codes(tts, text, kw)
             if not np.array_equal(again, solo[i]):
                 fail(f"{label}: request {i}: the eager loop does not repeat its solo run")
@@ -3308,7 +3280,7 @@ def phase_encode(tts, seen, wav: bytes):
     import torch
 
     from fish_tts_tpu_torch.models import vocoder
-    from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
+    from fish_tts_tpu_torch.synthesizer import vocoder_bucket
     from fish_tts_tpu_torch.testing import vq_decision_margins
     from fish_tts_tpu_torch.utils import checkpoint as ckpt
     from fish_tts_tpu_torch.utils.audio import read_wav
@@ -3334,7 +3306,7 @@ def phase_encode(tts, seen, wav: bytes):
     if profile.codes.shape != (K, n) or profile.codes.dtype != np.int64:
         fail(f"encode: codes {profile.codes.shape} {profile.codes.dtype} for {len(audio)} "
              f"samples, want ({K}, {n}) int64")
-    x = np.zeros((1, 1, _vocoder_bucket(n) * fl), np.float32)
+    x = np.zeros((1, 1, vocoder_bucket(n) * fl), np.float32)
     x[0, 0, :len(audio)] = audio
     x = torch.from_numpy(x)
     t = time.perf_counter()
@@ -3385,7 +3357,7 @@ def phase_encode(tts, seen, wav: bytes):
           + "; ".join(notes), flush=True)
     print(f"encode: {n} frames in {statistics.median(times[1:]):.1f} ms (median of "
           f"{ENCODE_RUNS} after a first call of {times[0]:.1f} ms; bucket "
-          f"{_vocoder_bucket(n)} frames); two encodes bit-equal", flush=True)
+          f"{vocoder_bucket(n)} frames); two encodes bit-equal", flush=True)
 
     long_wav = synthetic_wav(ENCODE_SECONDS, tts.sample_rate)
     torch.cuda.synchronize()
@@ -3397,7 +3369,7 @@ def phase_encode(tts, seen, wav: bytes):
     if long_profile.codes.shape != (K, n_long):
         fail(f"encode: {long_profile.codes.shape} codes for {ENCODE_SECONDS} s")
     print(f"encode: a synthetic {ENCODE_SECONDS} s WAV, {n_long} frames (bucket "
-          f"{_vocoder_bucket(n_long)}), in {statistics.median(times[1:]):.1f} ms (median of "
+          f"{vocoder_bucket(n_long)}), in {statistics.median(times[1:]):.1f} ms (median of "
           f"{ENCODE_RUNS} after a first call of {times[0]:.1f} ms); peak device memory "
           f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before it", flush=True)
     synthesize_once(tts, seen, f"synthesize with the encoded {n}-frame profile",
@@ -3445,7 +3417,7 @@ def phase_long(tts) -> None:
 
     calls, prefills, forks = [], [], []
     real_gen, real_fork = engine.generate_long, engine._fork_prefix
-    real_prefill = decode.PrefillGraphs.prefill
+    real_prefill = decode.Runner.prefill
 
     def gen_spy(text, **k):
         codes = []
@@ -3456,9 +3428,9 @@ def phase_long(tts) -> None:
                 codes.append(r.codes)
             yield r
 
-    def prefill_spy(graphs, state, prompt, lengths, *a, **k):
+    def prefill_spy(runner, state, prompt, lengths, *a, **k):
         prefills.append(int(lengths[0]))
-        return real_prefill(graphs, state, prompt, lengths, *a, **k)
+        return real_prefill(runner, state, prompt, lengths, *a, **k)
 
     def fork_spy(*a, **k):
         forks.append(1)
@@ -3484,7 +3456,7 @@ def phase_long(tts) -> None:
 
     engine.generate_long, engine._fork_prefix = gen_spy, fork_spy
     try:
-        with mock.patch.object(decode.PrefillGraphs, "prefill", prefill_spy):
+        with mock.patch.object(decode.Runner, "prefill", prefill_spy):
             pcm, first, wall = run()
             per_call = [sum(c.shape[1] for c in call[4]) for call in calls]
             frames = sum(per_call)
@@ -3736,10 +3708,10 @@ def hold_to_plain(mesh_log, key: int, got, ref, rerun, label: str) -> int | None
     against ``ref`` (the one-device plain run's, on its graphs): equal, or
     equal up to a first differing frame f at a knife edge of the plain run's
     own numbers (:func:`knife_edge`): the plain run is repeated for its
-    first f + 2 frames on the eager loop with every decision recorded
-    (``rerun(n)`` gives the codes of an n-frame run; the frames do not
-    depend on the budget).  Returns the frame of the first differing
-    decision, None when the codes are equal."""
+    first f + 2 frames with every decision recorded, on the eager loop that
+    the recording forces (``rerun(n)`` gives the codes of an n-frame run;
+    the frames do not depend on the budget).  Returns the frame of the first
+    differing decision, None when the codes are equal."""
     import numpy as np
 
     if np.array_equal(got, ref):
@@ -3769,8 +3741,9 @@ def mesh_tp(bundle, precision: str, card: str):
     label = f"mesh: tp=2 {precision}"
     mesh, plain = mesh_instance(bundle, precision, tp_size=2), mesh_instance(
         bundle, precision, fast_kernel=False)
-    if mesh.engine.mesh.shape != {"dp": 1, "tp": 2} or mesh.engine._options["fast_kernel"]:
-        fail(f"{label}: mesh {mesh.engine.mesh}, options {mesh.engine._options}")
+    options = mesh.engine.runner.options
+    if mesh.engine.mesh.shape != {"dp": 1, "tp": 2} or options["fast_kernel"]:
+        fail(f"{label}: mesh {mesh.engine.mesh}, options {options}")
     note = mesh_prefill(mesh, plain, label)
     seen = {id(t): observe(t) for t in (mesh, plain)}
 
@@ -3783,10 +3756,6 @@ def mesh_tp(bundle, precision: str, card: str):
             fail(f"{label}: {wav_samples(wav)} samples for {codes.shape[1]} frames")
         return codes
 
-    def rerun(n):
-        with mock.patch.object(plain.engine, "_decode", eager_route(plain.engine)):
-            return synth(plain, n)
-
     log, walls = DecisionLog(), []
     for tts in (mesh, plain):
         torch.cuda.synchronize()
@@ -3796,8 +3765,8 @@ def mesh_tp(bundle, precision: str, card: str):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t, codes))
     (wall_m, got), (wall_p, ref) = walls
-    key = mesh.engine._seed_noise(SEED).slot_keys([0])[0]
-    f = hold_to_plain(log, key, got, ref, rerun, label)
+    key = mesh.engine.seed_noise(SEED).slot_keys([0])[0]
+    f = hold_to_plain(log, key, got, ref, lambda n: synth(plain, n), label)
     eq = ("codes equal" if f is None else
           f"codes equal up to frame {f}, a knife edge of the plain run's numbers")
     print(f"{label}: {note}; {got.shape[1]} frames, {eq}; synthesize {wall_m:.2f} s on the "
@@ -3835,7 +3804,7 @@ def mesh_dp(bundle, plain, card: str) -> None:
     log = DecisionLog()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with log.recording(), mock.patch.object(engine, "_next_noise", lambda: KeyedNoise(keys)), \
+    with log.recording(), mock.patch.object(engine, "next_noise", lambda: KeyedNoise(keys)), \
             mock.patch.object(engine, "generate_batch", rec):
         wavs = tts.synthesize_batch(list(MESH_TEXTS), max_tokens=MESH_DP_FRAMES, **kw)
     torch.cuda.synchronize()
@@ -3845,17 +3814,15 @@ def mesh_dp(bundle, plain, card: str) -> None:
         if wav_samples(w) != c.shape[1] * tts._vocoder_cfg.frame_length:
             fail(f"{label}: {wav_samples(w)} samples for {c.shape[1]} frames")
 
-    def solo(b, n, eager=False):
-        with (mock.patch.object(plain.engine, "_decode", eager_route(plain.engine)) if eager
-              else contextlib.nullcontext()):
-            return np.concatenate([r.codes for r in plain.engine.generate_long(
-                MESH_TEXTS[b], max_new_tokens=n, noise=KeyedNoise([keys[b]]), **kw)
-                if r.action == "sample"], axis=1)
+    def solo(b, n):
+        return np.concatenate([r.codes for r in plain.engine.generate_long(
+            MESH_TEXTS[b], max_new_tokens=n, noise=KeyedNoise([keys[b]]), **kw)
+            if r.action == "sample"], axis=1)
 
     notes = []
     for b in range(2):
         f = hold_to_plain(log, keys[b], got[b], solo(b, MESH_DP_FRAMES),
-                          lambda n, b=b: solo(b, n, eager=True), f"{label}: stream {b}")
+                          lambda n, b=b: solo(b, n), f"{label}: stream {b}")
         notes.append(f"stream {b}: {got[b].shape[1]} frames, " + (
             "equal to its solo run" if f is None else f"equal up to frame {f}, a knife edge"))
     print(f"{label}: synthesize_batch of 2 in {wall:.2f} s on the mesh's eager loop with its "

@@ -13,15 +13,17 @@ Port of ``fish_tts_tpu/engine/decode.py``:
 - ``decode_chunk``: ``decode_frame`` in an eager loop, on either device
   (the CPU's route, and the reference the graph is held against);
 - ``DecodeGraph``: one ``decode_frame`` captured in a CUDA graph on a
-  persistent state and replayed once per frame (the engine's route on the
-  card): the host pays one graph launch per frame and reads nothing back;
+  persistent state and replayed once per frame (the route on the card):
+  the host pays one graph launch per frame and reads nothing back;
 - ``PrefillGraph``: :func:`prefill_body` at B = 1 captured in a CUDA graph
   on a persistent state at one prompt bucket and cache read bound, replayed
   for each later prefill there from static input buffers that every replay
-  rewrites whole.  ``PrefillGraphs`` is one owner's set of them (the
-  engine's, a serving pool's), all on one graph memory pool: it replays
-  where that is safe (a CUDA state, no mesh, B = 1, the default noise) and
-  runs the eager ``prefill`` everywhere else.
+  rewrites whole;
+- ``Runner``: one owner's (the engine's, a serving pool's) persistent
+  states and the graphs captured on them.  It replays a graph where
+  ``eager_because`` gives no reason (a state on the card, no mesh; for a
+  prefill also B = 1 and the default noise) and runs ``prefill`` or
+  ``decode_chunk`` everywhere else.
 
 Routes.  Each frame has three parts, each on its kernel or on plain
 PyTorch, decided per call by the reference's gates (:func:`route`, from the
@@ -690,61 +692,128 @@ class PrefillGraph:
         return self._frame.clone()
 
 
-def eager_because(params: Params, state: State, batch: int, noise) -> str | None:
-    """Why a prefill must run the eager :func:`prefill`, or None where a
-    :class:`PrefillGraph` can hold it: parameters on a mesh, more than one
-    row, a host noise source (drawn per call on the host), a state off the
-    card."""
+def eager_because(params: Params, state: State, batch: int, noise, *,
+                  prefill: bool) -> str | None:
+    """Why work on ``state`` must run eagerly, or None where a captured
+    graph can hold it: parameters on a mesh (a frame spans devices) or a
+    state off the card; for a prefill also more than one row or a host noise
+    source (drawn per call on the host).  :class:`Runner` asks this alone."""
     if isinstance(params, MeshParams):
         return "mesh"
-    if batch != 1:
+    if prefill and batch != 1:
         return "batch"
-    if not isinstance(noise, GumbelNoise):
+    if prefill and not isinstance(noise, GumbelNoise):
         return "host noise"
     if state["frame"].device.type != "cuda":
         return "device"
     return None
 
 
-class PrefillGraphs:
-    """One owner's prefills (the engine's, a serving pool's): a
-    :class:`PrefillGraph` per (state object, prompt bucket, ``kv_bucket``,
-    cache dtype, route), made at first use inside a ``graph.capture`` span
-    of ``metrics``, every one on one graph memory pool; the eager
-    :func:`prefill` where :func:`eager_because` gives a reason.  The states
-    must be persistent: a graph holds its state's addresses (and keeps it
-    alive).  ``options`` are :func:`route`'s."""
+class Runner:
+    """One owner's prefills and decode chunks (the engine's, a serving
+    pool's): the persistent states it hands out, the graphs captured on
+    them, and the choice of graph or eager loop (:func:`eager_because`).
 
-    def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params,
-                 metrics, **options):
+    - :meth:`state`: one state per (batch, rows, scratch), made at first use
+      and reset in place when asked.  A graph holds its state's addresses
+      (and keeps it alive), so a state is never replaced, and no other owner
+      resets it: each owner has a runner, and so states, of its own.
+    - :meth:`prefill`: a :class:`PrefillGraph` per (state, prompt bucket,
+      ``kv_bucket``, cache dtype, route), all on the runner's one graph
+      memory pool.
+    - :meth:`decode`: a :class:`DecodeGraph` per (state, ``kv_bucket``, skip,
+      route) of ``capacity`` frames, each on its own memory pool.
+
+    Each graph is captured at first use inside a ``graph.capture`` span of
+    ``metrics``; where :func:`eager_because` gives a reason, the eager
+    :func:`prefill` or :func:`decode_chunk` runs instead, looked up in this
+    module when called.  A state passed in must be persistent and whole:
+    never a view of some rows of another state, which a graph would replay
+    into whatever memory the view named at capture (``generate_batch``'s
+    grouped prefill calls the eager :func:`prefill` itself).  ``window`` is
+    the states' penalty window; ``options`` are :func:`route`'s."""
+
+    def __init__(self, params: Params, cfg: DualARConfig, ids: TokenIds, rope: Params, metrics,
+                 *, capacity: int, window: int = WINDOW, **options):
         self.params, self.cfg, self.ids, self.rope = params, cfg, ids, rope
-        self.metrics, self.options = metrics, options
-        self._graphs: dict[tuple, PrefillGraph] = {}
+        self.metrics, self.capacity, self.window, self.options = metrics, capacity, window, options
+        self._states: dict[tuple, State] = {}
+        self._prefills: dict[tuple, PrefillGraph] = {}
+        self._decodes: dict[tuple, DecodeGraph] = {}
         self._pool = None
+
+    def sibling(self, capacity: int) -> Runner:
+        """A runner on the same parameters and route with states and graphs
+        of its own, ``capacity`` frames a decode graph."""
+        return Runner(self.params, self.cfg, self.ids, self.rope, self.metrics,
+                      capacity=capacity, window=self.window, **self.options)
+
+    def route(self, batch: int) -> Route:
+        """The route of a frame of ``batch`` streams (:func:`route`)."""
+        return route(self.cfg, self.params, batch, self.window, **self.options)
+
+    def state(self, batch: int, rows: int, *, reset: bool = True, scratch: bool = False) -> State:
+        """The persistent state of ``batch`` streams and ``rows`` cache rows,
+        reset in place when ``reset`` is set.  ``scratch`` names a second
+        state of that shape (a pool's admission scratch, apart from its
+        decode state at one slot)."""
+        key = (batch, rows, scratch)
+        state = self._states.get(key)
+        if state is None:
+            state = self._states[key] = init_state(self.params, self.cfg, batch, rows,
+                                                   self.window)
+        elif reset:
+            reset_state(state)
+        return state
 
     @torch.no_grad()
     def prefill(self, state: State, prompt: torch.Tensor, lengths: torch.Tensor, noise,
                 temperature, top_p, repetition_penalty, *, kv_bucket: int | None):
-        """:func:`prefill` on this owner's route.  Returns (state, frame)."""
+        """:func:`prefill` on this runner's route.  Returns (state, frame)."""
         params, cfg = self.params, self.cfg
-        if eager_because(params, state, prompt.shape[0], noise) is not None:
+        if eager_because(params, state, prompt.shape[0], noise, prefill=True) is not None:
             return prefill(params, self.rope, state, prompt, lengths, noise, temperature,
                            top_p, repetition_penalty, cfg=cfg, ids=self.ids,
                            kv_bucket=kv_bucket, **self.options)
         set_sampling(state, temperature, top_p, repetition_penalty)
         set_noise(state, noise)
         bucket = prompt.shape[2]
-        key = (id(state), bucket, kv_bucket, state["kv"]["k"].dtype,
-               route(cfg, params, 1, state["prev"].shape[2], **self.options))
-        graph = self._graphs.get(key)
+        key = (id(state), bucket, kv_bucket, state["kv"]["k"].dtype, self.route(1))
+        graph = self._prefills.get(key)
         if graph is None:
             with self.metrics.span("graph.capture"):
-                graph = self._graphs[key] = PrefillGraph(
+                graph = self._prefills[key] = PrefillGraph(
                     params, cfg, self.ids, self.rope, state, bucket, kv_bucket=kv_bucket,
                     pool=self._pool, **self.options)
             # the first graph's pool is every later one's
             self._pool = graph.graph.pool()
         return state, graph.run(prompt, lengths)
+
+    @torch.no_grad()
+    def decode(self, state: State, noise, sampling, num_frames: int, *,
+               kv_bucket: int | None, skip_done: bool):
+        """``num_frames`` frames on ``state``.  The eager loop loads
+        ``sampling`` (temperature, top-p, penalty) and ``noise``'s keys into
+        the state first; a graph reads what the state holds (loaded by a
+        prefill, an admission or the caller).  ``skip_done`` enables the
+        all-done skip at one stream (always on above one).  Returns
+        (frames (B, n, 1+K), emitted (B, n)) on the device."""
+        B = state["frame"].shape[0]
+        if eager_because(self.params, state, B, noise, prefill=False) is not None:
+            _, frames, emitted = decode_chunk(
+                self.params, self.rope, state, noise, *sampling, cfg=self.cfg, ids=self.ids,
+                num_frames=num_frames, kv_bucket=kv_bucket, early_exit=skip_done,
+                **self.options)
+            return frames, emitted
+        skip = B > 1 or skip_done
+        key = (id(state), kv_bucket, skip, self.route(B))
+        graph = self._decodes.get(key)
+        if graph is None:
+            with self.metrics.span("graph.capture"):
+                graph = self._decodes[key] = DecodeGraph(
+                    self.params, self.cfg, self.ids, self.rope, state, kv_bucket=kv_bucket,
+                    skip_done=skip, capacity=self.capacity, **self.options)
+        return graph.run(num_frames)
 
 
 def _capture(state: State, fn, pool=None):

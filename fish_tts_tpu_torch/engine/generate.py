@@ -25,19 +25,17 @@ the recombined batch decodes in grouped row order with per-stream
 sampling columns and budgets; rows go back to the caller's order on the
 host.
 
-The engine keeps one decode state per (batch, cache allocation) and resets
-it in place for each generation.  On the card every decode frame after
-prefill is a replay of a :class:`~fish_tts_tpu_torch.engine.decode.DecodeGraph`
-captured on that state, one per (batch, cache rows, read rows, window,
-dtype, skip, route), and ``generate_long``'s prefill is a replay of a
-:class:`~fish_tts_tpu_torch.engine.decode.PrefillGraph` on it, one per
-(state, prompt bucket, prefix read rows, dtype, route), all on the
-engine's one graph memory pool (``decode.PrefillGraphs``); on the CPU the
-same frame and prefill run eagerly, as do ``set_prefix``'s one-off prefill
-and a batch's grouped prefills.  The route
-follows ``EngineConfig.sample_top_k``, ``approx_top_k`` and ``fast_kernel``
-through the reference's per-call gates (``decode.route``); the engine logs
-once when an option turns a kernel off.
+The engine's :class:`~fish_tts_tpu_torch.engine.decode.Runner` holds its
+decode states, one per (batch, cache allocation), reset in place for each
+generation, and runs every decode chunk and ``generate_long``'s prefill on
+them: graph replays on the card (one decode graph per state, read rows and
+skip; one prefill graph per state, prompt bucket and prefix read rows),
+the eager loop on the CPU and on a mesh.  ``set_prefix``'s one-off prefill
+and a batch's grouped prefills (row views) call the eager prefill
+themselves.  A serving pool takes a runner of its own
+(``engine.runner.sibling``).  The route follows ``EngineConfig.sample_top_k``,
+``approx_top_k`` and ``fast_kernel`` through the reference's per-call gates
+(``decode.route``); the engine logs once when an option turns a kernel off.
 
 ``EngineConfig(tp_size, dp_size)`` with a product above 1 puts the engine
 on a (dp, tp) mesh (``parallel/mesh.py``) over ``devices`` (default: every
@@ -89,7 +87,7 @@ class GenerateResponse:
     text: str | None = None
 
 
-def _pick_bucket(buckets: tuple[int, ...], n: int, cap: int) -> int:
+def pick_bucket(buckets: tuple[int, ...], n: int, cap: int) -> int:
     for b in buckets:
         if n <= b <= cap:
             return b
@@ -98,7 +96,7 @@ def _pick_bucket(buckets: tuple[int, ...], n: int, cap: int) -> int:
     raise ValueError(f"Prompt length {n} exceeds maximum {cap}")
 
 
-def _kv_bucket(n: int, step: int, cap: int) -> int:
+def kv_bucket(n: int, step: int, cap: int) -> int:
     """Smallest multiple of ``step`` >= n, capped at the cache length."""
     return min(cap, -(-n // step) * step)
 
@@ -106,7 +104,7 @@ def _kv_bucket(n: int, step: int, cap: int) -> int:
 CACHE_FLOOR = 512  # smallest KV-cache allocation, in rows
 
 
-def _cache_bucket(n: int, cap: int) -> int:
+def cache_bucket(n: int, cap: int) -> int:
     """Smallest power-of-two allocation >= n (>= CACHE_FLOOR), capped."""
     b = min(CACHE_FLOOR, cap)
     while b < min(n, cap):
@@ -204,13 +202,15 @@ class GenerationEngine:
         self.rope = make_rope_tables(cfg, device=self.device)
         if self.mesh is not None:
             self.rope = sharding.shard_rope(self.rope, self.mesh)
-        # the kernels are single-device programs: a mesh turns them off
-        self._options = dict(top_k=ecfg.sample_top_k, approx=ecfg.approx_top_k,
-                             fast_kernel=ecfg.fast_kernel and self.mesh is None)
-        window = ecfg.rep_penalty_window
-        kernels_on = decode_mod.route(cfg, params, 1, window)
-        chosen = decode_mod.route(cfg, params, 1, window, **self._options)
-        off = _kernels_off(kernels_on, chosen)
+        self.metrics = Metrics()
+        # generate_long's prefills and every decode chunk; the kernels are
+        # single-device programs: a mesh turns them off
+        self.runner = decode_mod.Runner(
+            params, cfg, self.ids, self.rope, self.metrics, capacity=self._large_chunk,
+            window=ecfg.rep_penalty_window, top_k=ecfg.sample_top_k, approx=ecfg.approx_top_k,
+            fast_kernel=ecfg.fast_kernel and self.mesh is None)
+        off = _kernels_off(decode_mod.route(cfg, params, 1, ecfg.rep_penalty_window),
+                           self.runner.route(1))
         if off:
             logger.info("sample_top_k=%d, fast_kernel=%s turn off the %s kernel(s): those "
                         "parts run on plain PyTorch", ecfg.sample_top_k, ecfg.fast_kernel,
@@ -218,13 +218,7 @@ class GenerationEngine:
         self._batch_gate_logged = False
         self._seeds = np.random.default_rng(seed)
         self._seeds_lock = threading.Lock()
-        self.metrics = Metrics()
-        # generate_long's prefills: graph replays on the card
-        self._prefills = decode_mod.PrefillGraphs(params, cfg, self.ids, self.rope,
-                                                  self.metrics, **self._options)
         self._calls = itertools.count()  # the ids of generate_long's samples
-        self._states: dict[tuple, decode_mod.State] = {}
-        self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
         # The reference-voice prefix: (state, generation, length in tokens),
         # replaced whole on each change so that a caller takes a consistent
         # snapshot with one attribute read.  The state is the engine's own
@@ -232,13 +226,13 @@ class GenerationEngine:
         self._prefix_counter = itertools.count(1)
         self._prefix_ref: tuple[decode_mod.State | None, int, int] = (None, 0, 0)
 
-    def _next_noise(self) -> decode_mod.GumbelNoise:
+    def next_noise(self) -> decode_mod.GumbelNoise:
         """A fresh noise source for one generation."""
         with self._seeds_lock:
             seed = int(self._seeds.integers(0, 2**63 - 1))
         return decode_mod.GumbelNoise(seed, self.cfg, self.device)
 
-    def _seed_noise(self, seed: int) -> decode_mod.GumbelNoise:
+    def seed_noise(self, seed: int) -> decode_mod.GumbelNoise:
         """The source that the first generation after ``reseed(seed)``
         draws, leaving the engine's own sequence as it is."""
         return decode_mod.GumbelNoise(int(np.random.default_rng(seed).integers(0, 2**63 - 1)),
@@ -272,7 +266,7 @@ class GenerationEngine:
             self.params, self.rope, state, torch.as_tensor(padded, device=self.device),
             torch.tensor([T], dtype=torch.int32, device=self.device),
             decode_mod.GumbelNoise(0, self.cfg), 0.7, 0.8, 1.1, cfg=self.cfg, ids=self.ids,
-            kv_bucket=0, **self._options)
+            kv_bucket=0, **self.runner.options)
         # only the KV cache and the position survive
         for k in ("done", "frame", "step"):
             state[k].zero_()
@@ -288,7 +282,7 @@ class GenerationEngine:
     def _prefix_state(self) -> decode_mod.State | None:
         return self._prefix_ref[0]
 
-    def _prefix_snapshot(self) -> tuple[decode_mod.State | None, int, int]:
+    def prefix_snapshot(self) -> tuple[decode_mod.State | None, int, int]:
         """One consistent (prefix state, its generation, its length in
         tokens; 0 without a prefix): one read of the published tuple."""
         return self._prefix_ref
@@ -305,9 +299,9 @@ class GenerationEngine:
         (the rest zero), then every other field, broadcast over the rows.
         The caller passes the one snapshot it gated on.  The JAX package's
         ``_fork_prefix`` and ``_fork_prefix_batch`` in one."""
-        return self._fork_into(prefix, self._fresh_state(batch, alloc))
+        return self.fork_into(prefix, self.runner.state(batch, alloc))
 
-    def _fork_into(self, prefix: decode_mod.State, state: decode_mod.State) -> decode_mod.State:
+    def fork_into(self, prefix: decode_mod.State, state: decode_mod.State) -> decode_mod.State:
         """Copy a B = 1 prefix snapshot into a zeroed ``state`` in place: its
         KV rows, then every other field, broadcast over the rows."""
         self._fork_kv(prefix["kv"], state["kv"])
@@ -326,7 +320,7 @@ class GenerationEngine:
         for k in ("k", "v"):
             dst[k].narrow(3, 0, n).copy_(src[k].narrow(3, 0, n))
 
-    def _encode_suffix(self, text: str):
+    def encode_suffix(self, text: str):
         """Encode only the target-text block, the part of the reference
         layout after the cached prefix."""
         seq = ContentSequence(modality=None)
@@ -337,53 +331,20 @@ class GenerationEngine:
     def _large_chunk(self) -> int:
         return max(self.engine_cfg.batch_chunk, self.engine_cfg.decode_chunk)
 
-    def _alloc_rows(self, n: int) -> int:
+    def alloc_rows(self, n: int) -> int:
         """The cache allocation for a worst-case extent of ``n`` rows: its
         power-of-two bucket, or the full context on a mesh, whose caches are
         never resized (JAX ``generate.py:287-300``)."""
         if self.mesh is not None:
             return self.cfg.max_seq_len
-        return _cache_bucket(n, self.cfg.max_seq_len)
-
-    def _fresh_state(self, batch: int, alloc: int) -> decode_mod.State:
-        """The persistent state of (batch, alloc), reset in place."""
-        state = self._states.get((batch, alloc))
-        if state is None:
-            state = self._states[(batch, alloc)] = decode_mod.init_state(
-                self.params, self.cfg, batch=batch, max_seq_len=alloc,
-                window=self.engine_cfg.rep_penalty_window)
-            return state
-        return decode_mod.reset_state(state)
-
-    def _decode(self, state: decode_mod.State, noise, sampling, num_frames: int,
-                kv_bucket: int, early_exit: bool):
-        """``num_frames`` decode frames: graph replays on the card, the
-        eager loop on the CPU and on a mesh.  Returns (frames, emitted) on
-        the device."""
-        if self.device.type != "cuda" or self.mesh is not None:
-            _, frames, emitted = decode_mod.decode_chunk(
-                self.params, self.rope, state, noise, *sampling, cfg=self.cfg, ids=self.ids,
-                num_frames=num_frames, kv_bucket=kv_bucket, early_exit=early_exit,
-                **self._options)
-            return frames, emitted
-        B, W = state["frame"].shape[0], state["prev"].shape[2]
-        skip_done = B > 1 or early_exit
-        key = (B, state["kv"]["k"].shape[3], kv_bucket, W, state["kv"]["k"].dtype, skip_done,
-               decode_mod.route(self.cfg, self.params, B, W, **self._options))
-        graph = self._graphs.get(key)
-        if graph is None:
-            with self.metrics.span("graph.capture"):
-                graph = self._graphs[key] = decode_mod.DecodeGraph(
-                    self.params, self.cfg, self.ids, self.rope, state, kv_bucket=kv_bucket,
-                    skip_done=skip_done, capacity=self._large_chunk, **self._options)
-        return graph.run(num_frames)
+        return cache_bucket(n, self.cfg.max_seq_len)
 
     def _pad_prompt(self, values: np.ndarray) -> tuple[np.ndarray, int]:
         """Right-pad a (1+K, T) prompt to the smallest bucket (zeros)."""
         T = values.shape[1]
         if T == 0:
             raise ValueError("Empty prompt")
-        bucket = _pick_bucket(self.engine_cfg.prompt_buckets, T, self.cfg.max_seq_len - 1)
+        bucket = pick_bucket(self.engine_cfg.prompt_buckets, T, self.cfg.max_seq_len - 1)
         padded = np.zeros((1, values.shape[0], bucket), np.int32)
         padded[0, :, :T] = values
         return padded, T
@@ -418,7 +379,7 @@ class GenerationEngine:
                 repetition_penalty=repetition_penalty, temperature=temperature,
                 prompt_text=prompt_text or [], prompt_tokens=prompt_tokens or [],
                 streaming=streaming, use_prefix_cache=use_prefix_cache,
-                show_progress=show_progress, noise=noise or self._next_noise())
+                show_progress=show_progress, noise=noise or self.next_noise())
             yield GenerateResponse(action="next")
 
     def _generate_one(self, text: str, *, max_new_tokens: int, top_p: float,
@@ -433,10 +394,10 @@ class GenerationEngine:
         with self.metrics.span("engine.prompt", rid=rid):
             # one snapshot: a later set_prefix/clear_prefix does not change what
             # this call forks
-            prefix, _, snap_len = self._prefix_snapshot()
+            prefix, _, snap_len = self.prefix_snapshot()
             use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
             if use_cached_prefix:
-                enc = self._encode_suffix(text)
+                enc = self.encode_suffix(text)
                 prefix_len = snap_len
                 prompt_len = prefix_len + enc.values.shape[1]
             else:
@@ -453,8 +414,8 @@ class GenerationEngine:
             padded, T = self._pad_prompt(enc.values)
             # the worst-case decode extent, and never below the padded prefill's
             # write extent
-            alloc = self._alloc_rows(max(prompt_len + max_new + 2 * self._large_chunk,
-                                         prefix_len + padded.shape[-1] + 1))
+            alloc = self.alloc_rows(max(prompt_len + max_new + 2 * self._large_chunk,
+                                        prefix_len + padded.shape[-1] + 1))
         sampling = (temperature, top_p, repetition_penalty)
 
         # prefill (it loads the sampling parameters and noise keys into the
@@ -463,17 +424,18 @@ class GenerationEngine:
         n0 = max(0, min(ecfg.first_chunk - 1, ecfg.decode_chunk, max_new - 1))
         with self.metrics.span("engine.prefill.launch", kind="launch", rid=rid):
             state = (self._fork_prefix(prefix, alloc) if use_cached_prefix
-                     else self._fresh_state(1, alloc))
-            kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
-            _, first = self._prefills.prefill(
+                     else self.runner.state(1, alloc))
+            kv_pre = kv_bucket(prefix_len, ecfg.kv_bucket_step, max_length) if prefix_len else 0
+            _, first = self.runner.prefill(
                 state, torch.as_tensor(padded, device=self.device),
                 torch.tensor([T], dtype=torch.int32, device=self.device), noise, *sampling,
                 kv_bucket=kv_pre)
             frames, emitted = first[:, None], torch.ones((1, 1), dtype=torch.bool,
                                                           device=self.device)
             if n0:
-                f1, e1 = self._decode(state, noise, sampling, n0, min(alloc, _kv_bucket(
-                    prompt_len + n0, ecfg.kv_bucket_step, max_length)), early_exit=False)
+                f1, e1 = self.runner.decode(state, noise, sampling, n0, kv_bucket=min(
+                    alloc, kv_bucket(prompt_len + n0, ecfg.kv_bucket_step, max_length)),
+                    skip_done=False)
                 frames, emitted = (torch.cat([frames, f1], dim=1),
                                    torch.cat([emitted, e1], dim=1))
             pending = (*start_fetch(frames, emitted), True)
@@ -491,9 +453,9 @@ class GenerationEngine:
                 # launch the next chunk before reading this one back
                 n = _chunk_len(max_new - dispatched, chunk, ecfg.decode_chunk)
                 with self.metrics.span("engine.decode.launch", kind="launch", rid=rid):
-                    f2, e2 = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
-                        prompt_len + dispatched + n, ecfg.kv_bucket_step, max_length)),
-                        early_exit=not streaming)
+                    f2, e2 = self.runner.decode(state, noise, sampling, n, kv_bucket=min(
+                        alloc, kv_bucket(prompt_len + dispatched + n, ecfg.kv_bucket_step,
+                                         max_length)), skip_done=not streaming)
                     nxt = (*start_fetch(f2, e2), False)
                 dispatched += n
             with self.metrics.span("prefill" if is_first else "decode", kind="wait", rid=rid):
@@ -586,7 +548,7 @@ class GenerationEngine:
         buckets ascending, each group in caller order."""
         groups: dict[int, list[int]] = {}
         for i, n in enumerate(lengths):
-            bucket = _pick_bucket(self.engine_cfg.prompt_buckets, int(n), self.cfg.max_seq_len - 1)
+            bucket = pick_bucket(self.engine_cfg.prompt_buckets, int(n), self.cfg.max_seq_len - 1)
             groups.setdefault(bucket, []).append(i)
         return sorted(groups.items())
 
@@ -627,10 +589,10 @@ class GenerationEngine:
 
         # one snapshot: the prefix's length and the forked KV describe the
         # same prefix even if set_prefix/clear_prefix lands mid-call
-        prefix, _, snap_len = self._prefix_snapshot()
+        prefix, _, snap_len = self.prefix_snapshot()
         use_cached_prefix = use_prefix_cache and prefix is not None and not prompt_text
         if use_cached_prefix:
-            encs = [self._encode_suffix(t) for t in texts]
+            encs = [self.encode_suffix(t) for t in texts]
             prefix_len = snap_len
         else:
             encs = [build_prompt(self.tokenizer, t, cfg.num_codebooks,
@@ -655,9 +617,7 @@ class GenerationEngine:
             return tuple(to_device_async(a[idxs][:, None], self.device)
                          for a in (t_arr, p_arr, r_arr))
 
-        W = ecfg.rep_penalty_window
-        off = _kernels_off(decode_mod.route(cfg, self.params, 1, W, **self._options),
-                           decode_mod.route(cfg, self.params, B, W, **self._options))
+        off = _kernels_off(self.runner.route(1), self.runner.route(B))
         if off and not self._batch_gate_logged:
             self._batch_gate_logged = True
             logger.info("B=%d is past the batch limit of the %s kernel(s): those parts run "
@@ -666,11 +626,11 @@ class GenerationEngine:
         groups = self._bucket_groups(lengths)
         order = [i for _, idxs in groups for i in idxs]  # grouped row -> caller index
         # the worst-case decode extent, never below a group's padded prefill
-        alloc = self._alloc_rows(max(max_len + max_new + 2 * self._large_chunk,
-                                     prefix_len + groups[-1][0] + 1))
+        alloc = self.alloc_rows(max(max_len + max_new + 2 * self._large_chunk,
+                                    prefix_len + groups[-1][0] + 1))
         state = (self._fork_prefix(prefix, alloc, batch=B) if use_cached_prefix
-                 else self._fresh_state(B, alloc))
-        kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
+                 else self.runner.state(B, alloc))
+        kv_pre = kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
         firsts, r0 = [], 0
         with self.metrics.span("prefill", kind="launch"):
             for bucket, idxs in groups:
@@ -681,13 +641,13 @@ class GenerationEngine:
                     self.params, self.rope, _rows(state, r0, r0 + len(idxs)),
                     to_device_async(padded, self.device),
                     to_device_async(lengths[idxs].astype(np.int32), self.device),
-                    self._next_noise(), *columns(idxs), cfg=cfg, ids=ids, kv_bucket=kv_pre,
-                    **self._options)
+                    self.next_noise(), *columns(idxs), cfg=cfg, ids=ids, kv_bucket=kv_pre,
+                    **self.runner.options)
                 firsts.append(first)
                 r0 += len(idxs)
         # the decode's own source and the columns in grouped row order,
         # loaded into the state the decode graphs read
-        noise, sampling = self._next_noise(), columns(order)
+        noise, sampling = self.next_noise(), columns(order)
         decode_mod.set_sampling(state, *sampling)
         decode_mod.set_noise(state, noise)
 
@@ -698,9 +658,9 @@ class GenerationEngine:
 
         def dispatch(dispatched: int):
             n = _chunk_len(max_new - dispatched, chunk, ecfg.decode_chunk)
-            f, e = self._decode(state, noise, sampling, n, min(alloc, _kv_bucket(
-                max_len + dispatched + n, ecfg.kv_bucket_step, cfg.max_seq_len)),
-                early_exit=True)
+            f, e = self.runner.decode(state, noise, sampling, n, kv_bucket=min(
+                alloc, kv_bucket(max_len + dispatched + n, ecfg.kv_bucket_step,
+                                 cfg.max_seq_len)), skip_done=True)
             return (*start_fetch(f, e), n)
 
         first_host, copied = start_fetch(torch.cat(firsts))

@@ -3,12 +3,14 @@
 A fixed pool of B slots decodes in one batched state; queued requests join
 the running decode between chunks, without disturbing the other slots.
 
-- The pool owns its decode states (one per KV allocation) and the decode
-  graphs captured on them.  A captured graph holds its state's addresses,
-  so nothing else may reset that state: the engine's own (B, alloc) states,
-  which ``synthesize_batch`` resets in place, are never the pool's.  Free
-  slots sit with ``done`` set, so the decode holds them, and a frame after
-  every slot is done is skipped on the device.
+- The pool has a :class:`~fish_tts_tpu_torch.engine.decode.Runner` of its
+  own (``engine.runner.sibling``): its decode states (one per KV
+  allocation), its admission scratch states and the graphs captured on
+  them.  A captured graph holds its state's addresses, so no other owner
+  may reset that state: the engine's own (B, alloc) states, which
+  ``synthesize_batch`` resets in place, are never the pool's.  Free slots
+  sit with ``done`` set, so the decode holds them, and a frame after every
+  slot is done is skipped on the device.
 - Admission (:meth:`ContinuousBatcher._admit_many`) prefills each request
   admitted in a round alone, at its own prompt bucket, in a one-row scratch
   state of the pool's own (JAX's ``scratch_seq`` and ``rows``), then copies
@@ -16,9 +18,8 @@ the running decode between chunks, without disturbing the other slots.
   ``pos`` and ``done``, with ``prev`` and ``step`` zeroed and the slot's
   sampling column and noise key written.  The other slots' rows are
   untouched and decode on in the next chunk.  On the card the prefill is
-  a replay of the :class:`~fish_tts_tpu_torch.engine.decode.PrefillGraph`
-  of (scratch state, bucket, prefix read rows), captured at first use
-  (a ``graph.capture`` span), on the pool's own graph memory pool.  JAX
+  a replay of the runner's prefill graph of (scratch state, bucket, prefix
+  read rows), captured at first use (a ``graph.capture`` span).  JAX
   prefills the round's requests as one group at the largest member's
   bucket; on the card the plain prefill's GEMMs round a row differently
   with the group's size and bucket, which would make a request's codes
@@ -50,14 +51,15 @@ a chunk or a first frame); the request span ``serve.queue``, from submission
 to the start of the admitting round's admission.  :meth:`stats` reports over
 the last ``STATS_WINDOW_S`` seconds on the spans' clock.
 
-On the CPU each chunk runs the eager loop; a request may then carry a host
-noise source of its own (``prepare(noise=)``), called as ``noise(0, step,
-draws)`` for the slot it holds, as in its solo run.  On the card every
-decode frame and every admission's prefill is a graph replay and the noise
-is the counter-based default.  On an engine's (dp, tp) mesh the pool's
-caches are sharded like the engine's, allocated at the full context and
-never resized, admission prefills eagerly and installs into the sharded
-cache, and each chunk runs the eager loop.
+The runner decides where each chunk and admission runs
+(``decode.eager_because``).  On the CPU each chunk runs the eager loop; a
+request may then carry a host noise source of its own (``prepare(noise=)``),
+called as ``noise(0, step, draws)`` for the slot it holds, as in its solo
+run.  On the card every decode frame and every admission's prefill is a
+graph replay and the noise is the counter-based default.  On an engine's
+(dp, tp) mesh the pool's caches are sharded like the engine's, allocated at
+the full context and never resized, admission prefills eagerly and
+installs into the sharded cache, and each chunk runs the eager loop.
 
 Events are streaming-semantics (each emitted frame, the EOS frame
 included); callers that want batch semantics drop the final frame.
@@ -81,8 +83,8 @@ import numpy as np
 import torch
 
 from fish_tts_tpu_torch.engine import decode as decode_mod
-from fish_tts_tpu_torch.engine.generate import (GenerationEngine, _cache_bucket, _kv_bucket,
-                                                _pick_bucket, start_fetch, to_device_async)
+from fish_tts_tpu_torch.engine.generate import (GenerationEngine, cache_bucket, kv_bucket,
+                                                pick_bucket, start_fetch, to_device_async)
 from fish_tts_tpu_torch.models.prompt import build_prompt
 from fish_tts_tpu_torch.utils import profiling
 
@@ -166,16 +168,8 @@ class ContinuousBatcher:
         self._slot_req: list[_Request | None] = [None] * slots
         dev = engine.device
         self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-        # the pool's own states, one per KV allocation, the graphs captured
-        # on them, and its admission scratch states
-        self._states: dict[int, decode_mod.State] = {}
-        self._graphs: dict[tuple, decode_mod.DecodeGraph] = {}
-        self._scratch: dict[int, decode_mod.State] = {}
-        # admission's prefills, graph replays on the card, on the pool's own
-        # graph memory pool
-        self._prefills = decode_mod.PrefillGraphs(engine.params, engine.cfg, engine.ids,
-                                                  engine.rope, engine.metrics,
-                                                  **engine._options)
+        # the pool's own states and graphs, apart from the engine's
+        self.runner = engine.runner.sibling(self.chunk)
         self._state = self._fresh_pool()
         self.allocs = [self._alloc]  # the allocations the pool went through
         # slots retired at dispatch (predictive budget retirement): the
@@ -192,25 +186,12 @@ class ContinuousBatcher:
     def _alloc(self) -> int:
         return int(self._state["kv"]["k"].shape[3])
 
-    def _pool_state(self, alloc: int) -> decode_mod.State:
-        state = self._states.get(alloc)
-        if state is None:
-            eng = self.engine
-            state = self._states[alloc] = decode_mod.init_state(
-                eng.params, eng.cfg, batch=self.slots, max_seq_len=alloc,
-                window=eng.engine_cfg.rep_penalty_window)
-        return state
-
     def _fresh_pool(self) -> decode_mod.State:
-        """The pool's state at the smallest allocation, reset, every slot done."""
-        state = decode_mod.reset_state(self._pool_state(self._pool_floor()))
+        """The pool's state at the smallest allocation (the full context on
+        a mesh, where the pool is never resized), reset, every slot done."""
+        state = self.runner.state(self.slots, self.engine.alloc_rows(1))
         state["done"].fill_(True)
         return state
-
-    def _pool_floor(self) -> int:
-        """The first allocation: the smallest bucket, or the full context on
-        a mesh, where the pool is never resized."""
-        return self.engine._alloc_rows(1)
 
     def _pool_resize(self, min_rows: int, grow_only: bool = False) -> None:
         """Move the pool to the allocation bucket of ``min_rows`` (every live
@@ -219,22 +200,12 @@ class ContinuousBatcher:
         ``serve.py:263-277``)."""
         if self.engine.mesh is not None:
             return
-        alloc = _cache_bucket(min_rows, self.engine.cfg.max_seq_len)
+        alloc = cache_bucket(min_rows, self.engine.cfg.max_seq_len)
         cur = self._alloc
         if alloc > cur or (alloc < cur and not grow_only):
-            self._state = decode_mod.resize_cache(self._state, self._pool_state(alloc))
+            self._state = decode_mod.resize_cache(
+                self._state, self.runner.state(self.slots, alloc, reset=False))
             self.allocs.append(alloc)
-
-    def _scratch_state(self, seq: int) -> decode_mod.State:
-        """The one-row admission scratch of ``seq`` cache rows, reset."""
-        state = self._scratch.get(seq)
-        if state is None:
-            eng = self.engine
-            state = self._scratch[seq] = decode_mod.init_state(
-                eng.params, eng.cfg, batch=1, max_seq_len=seq,
-                window=eng.engine_cfg.rep_penalty_window)
-            return state
-        return decode_mod.reset_state(state)
 
     def on_stream(self):
         """A context that makes the pool's CUDA stream current (nothing on
@@ -288,16 +259,16 @@ class ContinuousBatcher:
                                 "noise is drawn inside the decode graph")
             with self._lock:
                 self._check_queue_bound()
-            source = eng._next_noise() if seed is None else eng._seed_noise(seed)
+            source = eng.next_noise() if seed is None else eng.seed_noise(seed)
             has_refs = bool(prompt_text) or bool(prompt_tokens)
             # one consistent snapshot; admission re-checks the generation
-            prefix_state, prefix_gen, prefix_len = eng._prefix_snapshot()
+            prefix_state, prefix_gen, prefix_len = eng.prefix_snapshot()
             if has_refs and prefix_state is not None:
                 raise ValueError("per-request references cannot be combined with a session-level "
                                  "cached prefix (engine.set_prefix); clear the prefix or drop the "
                                  "per-request references")
             if prefix_state is not None:
-                enc = eng._encode_suffix(text)
+                enc = eng.encode_suffix(text)
             else:
                 enc = build_prompt(eng.tokenizer, text, eng.cfg.num_codebooks,
                                    prompt_texts=prompt_text or [], prompt_codes=prompt_tokens or [])
@@ -378,8 +349,8 @@ class ContinuousBatcher:
             eng.metrics.record("serve.queue", req.t_submit, now, rid=req.id)
             self._sample(self._waits, (now, now - req.t_submit))
         cfg, ecfg = eng.cfg, eng.engine_cfg
-        prefix, prefix_gen, prefix_len = eng._prefix_snapshot()
-        kv_pre = _kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
+        prefix, prefix_gen, prefix_len = eng.prefix_snapshot()
+        kv_pre = kv_bucket(prefix_len, ecfg.kv_bucket_step, cfg.max_seq_len) if prefix_len else 0
 
         # a request encoded against another prefix generation would decode
         # against a wrong context: fail it
@@ -401,26 +372,26 @@ class ContinuousBatcher:
         # the install writes [:rows] of every admitted slot: grow first
         # (live streams may reach further, so never shrink here)
         with eng.metrics.span("serve.lm.launch", kind="launch"):
-            self._pool_resize(_kv_bucket(max(r.prompt_len for r in reqs), ecfg.kv_bucket_step,
+            self._pool_resize(kv_bucket(max(r.prompt_len for r in reqs), ecfg.kv_bucket_step,
                                          cfg.max_seq_len) + 1, grow_only=True)
         dev = eng.device
         for slot, req in zip(slot_ids, reqs):
             with eng.metrics.span("serve.admit", kind="launch", rid=req.id):
                 # each request alone at its own bucket, as its solo run prefills
-                bucket = _pick_bucket(ecfg.prompt_buckets, req.prompt_len - prefix_len, cap)
-                rows = _kv_bucket(req.prompt_len, ecfg.kv_bucket_step, cfg.max_seq_len)
+                bucket = pick_bucket(ecfg.prompt_buckets, req.prompt_len - prefix_len, cap)
+                rows = kv_bucket(req.prompt_len, ecfg.kv_bucket_step, cfg.max_seq_len)
                 # the scratch covers the whole padded write extent
-                scratch = self._scratch_state(
-                    _kv_bucket(kv_pre + bucket + 1, ecfg.kv_bucket_step, cfg.max_seq_len))
+                scratch = self.runner.state(1, kv_bucket(kv_pre + bucket + 1, ecfg.kv_bucket_step,
+                                                         cfg.max_seq_len), scratch=True)
                 if prefix is not None:
                     # prefill continues at the prefix's true length, reading
                     # kv_pre rows
-                    eng._fork_into(prefix, scratch)
+                    eng.fork_into(prefix, scratch)
                 padded = np.zeros((1, 1 + cfg.num_codebooks, bucket), np.int32)
                 padded[0, :, :req.values.shape[1]] = req.values
                 noise = (decode_mod.KeyedNoise([req.key]) if req.noise is None
                          else _RowNoise([req], cfg))
-                _, first = self._prefills.prefill(
+                _, first = self.runner.prefill(
                     scratch, to_device_async(padded, dev),
                     to_device_async(np.array([req.values.shape[1]], np.int32), dev), noise,
                     req.temperature, req.top_p, req.repetition_penalty, kv_bucket=kv_pre)
@@ -448,29 +419,6 @@ class ContinuousBatcher:
         mask = np.zeros((self.slots,), bool)
         mask[list(slots)] = True
         decode_mod.mark_done(self._state, to_device_async(mask, self.engine.device))
-
-    def _decode(self, kv_b: int):
-        """One chunk of the pool: the eager loop on the CPU and on a mesh,
-        replays of the pool's graph for (allocation, read window) on the
-        card.  Returns (frames, emitted) on the device."""
-        eng, state = self.engine, self._state
-        if eng.device.type != "cuda" or eng.mesh is not None:
-            noise = None
-            if any(r is not None and r.noise is not None for r in self._slot_req):
-                noise = _RowNoise(list(self._slot_req), eng.cfg)
-            _, frames, emitted = decode_mod.decode_chunk(
-                eng.params, eng.rope, state, noise, *state["sampling"], cfg=eng.cfg,
-                ids=eng.ids, num_frames=self.chunk, kv_bucket=kv_b, early_exit=True,
-                **eng._options)
-            return frames, emitted
-        key = (self._alloc, kv_b)
-        graph = self._graphs.get(key)
-        if graph is None:
-            with eng.metrics.span("graph.capture"):
-                graph = self._graphs[key] = decode_mod.DecodeGraph(
-                    eng.params, eng.cfg, eng.ids, eng.rope, state, kv_bucket=kv_b,
-                    skip_done=True, capacity=self.chunk, **eng._options)
-        return graph.run(self.chunk)
 
     def step(self) -> list[Event]:
         """One scheduler round: admit queued requests into free slots, launch
@@ -546,10 +494,14 @@ class ContinuousBatcher:
                 # one chunk, since results land one round late
                 need = max(self._slot_req[i].prompt_len + self._slot_req[i].produced
                            + self.chunk for i in live) + self.chunk
-                kv_b = _kv_bucket(need, ecfg.kv_bucket_step, cfg.max_seq_len)
+                kv_b = kv_bucket(need, ecfg.kv_bucket_step, cfg.max_seq_len)
                 self._pool_resize(need)
-                kv_b = min(kv_b, self._alloc)
-                frames, emitted = self._decode(kv_b)
+                # a host source, only on the CPU
+                noise = (_RowNoise(list(self._slot_req), cfg) if any(
+                    r is not None and r.noise is not None for r in self._slot_req) else None)
+                frames, emitted = self.runner.decode(
+                    self._state, noise, self._state["sampling"], self.chunk,
+                    kv_bucket=min(kv_b, self._alloc), skip_done=True)
                 nxt = (*start_fetch(frames, emitted), dict(enumerate(self._slot_req)))
                 for i in live:  # predictive retirement, after the snapshot
                     req = self._slot_req[i]

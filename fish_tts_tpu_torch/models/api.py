@@ -193,15 +193,15 @@ def init_model(checkpoint_path: str | Path, device: str = "cuda", precision: str
     Returns ``(engine, engine.generate_long)``; ``compile`` is accepted for
     the signature (the engine captures its decode graphs on first use)."""
     from fish_tts_tpu_torch.engine.generate import GenerationEngine
-    from fish_tts_tpu_torch.synthesizer import _DTYPES
+    from fish_tts_tpu_torch.synthesizer import DTYPES
     from fish_tts_tpu_torch.utils.quantize import quantize_lm_params
 
-    if precision not in _DTYPES:
+    if precision not in DTYPES:
         raise ValueError(f"Unknown precision {precision!r}; expected one of bf16, int8, fp16, "
                          "fp32")
     dev = _device(device)
     model = DualARTransformer.from_pretrained(checkpoint_path, device="cpu")
-    params = ckpt.to_device(dual_ar.cast_params(model.params, _DTYPES[precision]), dev)
+    params = ckpt.to_device(dual_ar.cast_params(model.params, DTYPES[precision]), dev)
     if precision == "int8":
         params = quantize_lm_params(params)
     engine = GenerationEngine(params, model.config, model.tokenizer)

@@ -273,7 +273,7 @@ def _convnext(p: Params, x):
     return inp + x.transpose(1, 2)
 
 
-def _vq_embed_codes(vq: Params, codes):
+def vq_embed_codes(vq: Params, codes):
     """codes (B, T) -> out_proj(codebook[codes]) (B, C, T)."""
     emb = vq["codebook"][codes]
     w = vq["out_proj"]["w"][:, :, 0]
@@ -320,12 +320,12 @@ def vq_encode(qp: Params, z):
     semantic code, then each residual code on what the codes before it
     leave."""
     sem = _vq_nearest(qp["semantic"], _vq_in_proj(qp["semantic"], z))
-    residual = z - _vq_embed_codes(qp["semantic"], sem)
+    residual = z - vq_embed_codes(qp["semantic"], sem)
     codes = [sem]
     for vq in qp["residual"]:
         c = _vq_nearest(vq, _vq_in_proj(vq, residual))
         codes.append(c)
-        residual = residual - _vq_embed_codes(vq, c)
+        residual = residual - vq_embed_codes(vq, c)
     return torch.stack(codes, dim=1)
 
 
@@ -352,9 +352,9 @@ def quantizer_decode(qp: Params, cfg: VocoderConfig, indices):
     indices = indices.long()
     sem = indices[:, 0].clamp(0, cfg.semantic_codebook_size - 1)
     res = indices[:, 1:].clamp(0, cfg.residual_codebook_size - 1)
-    z = _vq_embed_codes(qp["semantic"], sem)
+    z = vq_embed_codes(qp["semantic"], sem)
     for i, vq in enumerate(qp["residual"]):
-        z = z + _vq_embed_codes(vq, res[:, i])
+        z = z + vq_embed_codes(vq, res[:, i])
     z = _wlt_forward(qp["post"], cfg.quantizer_transformer, cfg.quantizer_window, z)
     for stage, f in zip(qp["upsample"], tuple(reversed(cfg.downsample_factor))):
         z = causal_conv_transpose1d(z, stage["tconv"]["w"], stage["tconv"]["b"], stride=f)

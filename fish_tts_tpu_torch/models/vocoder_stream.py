@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from fish_tts_tpu_torch.config import VocoderConfig, VocoderTransformerConfig
-from fish_tts_tpu_torch.models.vocoder import _vq_embed_codes, rope_table, wlt_layer_body
+from fish_tts_tpu_torch.models.vocoder import vq_embed_codes, rope_table, wlt_layer_body
 from fish_tts_tpu_torch.ops.attention import NEG_INF
 from fish_tts_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from fish_tts_tpu_torch.ops.norms import layer_norm, snake, vocoder_rms_norm
@@ -212,9 +212,9 @@ def decode_chunk(params: Params, cfg: VocoderConfig, state: Params, indices):
     indices = indices.long()
     sem = indices[:, 0].clamp(0, cfg.semantic_codebook_size - 1)
     res = indices[:, 1:].clamp(0, cfg.residual_codebook_size - 1)
-    z = _vq_embed_codes(qp["semantic"], sem)
+    z = vq_embed_codes(qp["semantic"], sem)
     for i, vq in enumerate(qp["residual"]):
-        z = z + _vq_embed_codes(vq, res[:, i])
+        z = z + vq_embed_codes(vq, res[:, i])
 
     post, z = stream_wlt(state["post"], qp["post"], cfg.quantizer_transformer,
                          cfg.quantizer_window, z)

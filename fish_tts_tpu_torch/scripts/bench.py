@@ -20,7 +20,7 @@ Stages, as in the JAX script:
 - decode: a 64-token bucket holding a 48-token prompt
   (``RandomState(0).randint(0, 1000)``), temperature 0.7, top-p 0.8,
   repetition penalty 1.1, ``top_k`` -1 (32 with ``--tiny``), a cache of
-  ``_cache_bucket(48 + frames + 200)`` rows; after the prefill one warm
+  ``cache_bucket(48 + frames + 200)`` rows; after the prefill one warm
   20-frame chunk, then two timed passes of ``frames // 20`` chunks (best
   taken, a re-prefill between them), the KV read window growing in steps of
   256 with the live prefix (``chunk_buckets``).  On the card each chunk is
@@ -90,7 +90,7 @@ from fish_tts_tpu_torch.config import (
     VocoderConfig,
 )
 from fish_tts_tpu_torch.engine import decode
-from fish_tts_tpu_torch.engine.generate import _cache_bucket
+from fish_tts_tpu_torch.engine.generate import cache_bucket
 from fish_tts_tpu_torch.engine.serve import ContinuousBatcher
 from fish_tts_tpu_torch.models import vocoder
 from fish_tts_tpu_torch.models.dual_ar import TokenIds, param_count
@@ -143,7 +143,7 @@ def model_prompt(cfg, batch: int, seed: int, dev: torch.device) -> torch.Tensor:
 def state_alloc(cfg, frames: int) -> int:
     """The decode stage's cache rows: the engine's allocation bucket of the
     prompt, the timed frames and the dispatch overshoot."""
-    return _cache_bucket(PROMPT_LEN + frames + 2 * 100, cfg.max_seq_len)
+    return cache_bucket(PROMPT_LEN + frames + 2 * 100, cfg.max_seq_len)
 
 
 def chunk_buckets(cfg, n_chunks: int) -> list[int]:
@@ -319,7 +319,7 @@ def main(argv: list[str] | None = None) -> dict:
                    else {args.aggregate_batch})
         for Ba in sorted(batches):
             state_a = decode.init_state(params, cfg, batch=Ba,
-                                        max_seq_len=_cache_bucket(PROMPT_LEN + CHUNK * 5,
+                                        max_seq_len=cache_bucket(PROMPT_LEN + CHUNK * 5,
                                                                   cfg.max_seq_len))
             prefill(state_a, 11, prompt=model_prompt(cfg, Ba, 1, dev),
                     lengths=torch.full((Ba,), PROMPT_LEN, dtype=torch.int32, device=dev))

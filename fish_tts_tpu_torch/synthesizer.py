@@ -65,11 +65,11 @@ _instance_lock = threading.Lock()
 _VOCODER_BUCKETS = (10, 20, 40, 80, 160, 320, 640, 1280, 2048)
 
 PRECISIONS = ("bf16", "fp16", "fp32", "int8")
-_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
+DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32,
            "int8": torch.bfloat16}
 
 
-def _vocoder_bucket(n: int) -> int:
+def vocoder_bucket(n: int) -> int:
     """Smallest decode bucket >= n frames."""
     for b in _VOCODER_BUCKETS:
         if b >= n:
@@ -244,7 +244,7 @@ class FishTTS:
 
         # int8: bf16 activations and codec, weight-only int8 LM matmuls;
         # otherwise the LM, its cache and the codec in the precision's dtype
-        dtype = _DTYPES[precision]
+        dtype = DTYPES[precision]
         params = ckpt.to_device(cast_params(params, dtype), self.device)
         if precision == "int8":
             params = quantize_lm_params(params)
@@ -666,7 +666,7 @@ class FishTTS:
         if self._vocoder_params is None:
             raise RuntimeError("Vocoder not loaded")
         n = codes.shape[-1]
-        padded = np.zeros((1, codes.shape[0], _vocoder_bucket(n)), np.int64)
+        padded = np.zeros((1, codes.shape[0], vocoder_bucket(n)), np.int64)
         padded[0, :, :n] = codes
         audio = vocoder.dac_decode(self._vocoder_params, self._vocoder_cfg,
                                    to_device_async(padded, self.device))
@@ -731,7 +731,7 @@ class FishTTS:
         audio = read_wav(audio_bytes, self.sample_rate)
         fl = self._vocoder_cfg.frame_length
         n_frames = max(1, -(-len(audio) // fl))
-        padded = np.zeros((1, 1, _vocoder_bucket(n_frames) * fl), np.float32)
+        padded = np.zeros((1, 1, vocoder_bucket(n_frames) * fl), np.float32)
         padded[0, 0, :len(audio)] = audio
         dtype = self._vocoder_params["encoder"]["stem"]["w"].dtype
         codes = vocoder.dac_encode(self._vocoder_params, self._vocoder_cfg,

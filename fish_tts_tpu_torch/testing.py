@@ -309,7 +309,7 @@ def vq_decision_margins(codes, codes_ref, qp, z_ref, margin: float) -> dict:
         j = int((codes[b, :, t] != codes_ref[b, :, t]).nonzero()[0])
         residual = z[b:b + 1, :, t:t + 1]
         for i in range(j):  # the books before j agree: the reference's residual
-            residual = residual - vocoder._vq_embed_codes(books[i], codes_ref[b:b + 1, i, t:t + 1])
+            residual = residual - vocoder.vq_embed_codes(books[i], codes_ref[b:b + 1, i, t:t + 1])
         e = vocoder._vq_in_proj(books[j], residual)[0, :, 0]
         e = e / (torch.linalg.vector_norm(e) + 1e-12)
         cb = books[j]["codebook"]

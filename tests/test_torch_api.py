@@ -270,7 +270,7 @@ def test_every_precision_synthesizes_a_wav(precision):
         p["layers"]["wqkv"].dtype == dtype)
     n = _wav_frames(tts.synthesize("Hello world", max_tokens=8))
     assert 0 < n <= 7 * tts._vocoder_cfg.frame_length
-    assert next(iter(tts.engine._states.values()))["kv"]["k"].dtype == dtype
+    assert next(iter(tts.engine.runner._states.values()))["kv"]["k"].dtype == dtype
     if precision == "bf16":
         assert FishTTS(device="cpu", warmup=False,
                        _testing_bundle=ttiny_bundle(0)).precision == "bf16"

@@ -135,9 +135,9 @@ class Run:
         for _ in range(len(texts) + 1):  # at most one key per group, then the decode's
             key, sub = jax.random.split(key)
             subs.append(replay_batch_noise(sub))
-        monkeypatch.setattr(teng, "_next_noise", lambda: subs.pop(0))
+        monkeypatch.setattr(teng, "next_noise", lambda: subs.pop(0))
         self.prefills, self.decoded, self.groups = [], set(), []
-        prefill, decode, bucket_groups = tdecode.prefill, teng._decode, teng._bucket_groups
+        prefill, decode, bucket_groups = tdecode.prefill, teng.runner.decode, teng._bucket_groups
 
         def spy_prefill(params, rope, state, *a, **k):
             self.prefills.append((state["frame"].shape[0],
@@ -153,7 +153,7 @@ class Run:
             return self.groups
 
         monkeypatch.setattr(tdecode, "prefill", spy_prefill)
-        monkeypatch.setattr(teng, "_decode", spy_decode)
+        monkeypatch.setattr(teng.runner, "decode", spy_decode)
         monkeypatch.setattr(teng, "_bucket_groups", spy_groups)
         self.want = self._collect(getattr(jeng, method)(texts, **kw))
         self.seen = Decisions(monkeypatch)
@@ -225,9 +225,9 @@ def test_generate_batch_matches_jax(pair, monkeypatch, case):
     run = Run(pair, monkeypatch, "generate_batch", texts, **kw)
     edges = hold_batch(run)
     teng = pair[1]
-    (B, alloc), = [k for k, s in teng._states.items()
-                   if s["kv"]["k"].data_ptr() in run.decoded]
-    state = teng._states[(B, alloc)]
+    (B, alloc, scratch), = [k for k, s in teng.runner._states.items()
+                            if s["kv"]["k"].data_ptr() in run.decoded]
+    state = teng.runner._states[(B, alloc, scratch)]
     assert B == len(texts) and run.decoded == {state["kv"]["k"].data_ptr()}
     assert [n for n, _ in run.prefills] == [len(idxs) for _, idxs in run.groups]
     assert len(run.groups) == 2

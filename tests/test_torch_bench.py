@@ -150,7 +150,7 @@ def test_decode_workload_is_the_jax_one(monkeypatch):
     agg = np.zeros((8, 1 + cfg.num_codebooks, 64), np.int32)
     agg[:, 0] = np.random.RandomState(1).randint(0, 1000, (8, 64))
     np.testing.assert_array_equal(bench.bench_prompt(cfg, 8, seed=1), agg)
-    assert jax_cache_bucket(48 + 20 * 5, cfg.max_seq_len) == bench._cache_bucket(
+    assert jax_cache_bucket(48 + 20 * 5, cfg.max_seq_len) == bench.cache_bucket(
         bench.PROMPT_LEN + bench.CHUNK * 5, cfg.max_seq_len)
 
 

@@ -318,5 +318,5 @@ def test_engine_reuses_its_state_and_resets_it():
 
     first = codes(TEXTS[0], 7)
     codes(TEXTS[1], 8)
-    assert len(engine._states) == 1
+    assert len(engine.runner._states) == 1
     np.testing.assert_array_equal(codes(TEXTS[0], 7), first)

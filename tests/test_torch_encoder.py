@@ -199,11 +199,11 @@ def test_encode_reference_matches_jax(pair, vparams):
     assert got.codes.dtype == want.codes.dtype == np.int64
     assert got.codes.shape == want.codes.shape
     if not np.array_equal(got.codes, want.codes):  # near ties only
-        from fish_tts_tpu_torch.synthesizer import _vocoder_bucket
+        from fish_tts_tpu_torch.synthesizer import vocoder_bucket
         from fish_tts_tpu_torch.utils.audio import read_wav
 
         x = read_wav(wav)
-        padded = np.zeros((1, 1, _vocoder_bucket(got.codes.shape[1]) * FL), np.float32)
+        padded = np.zeros((1, 1, vocoder_bucket(got.codes.shape[1]) * FL), np.float32)
         padded[0, 0, :len(x)] = x
         latent = tvoc.encoder_forward(vparams[0]["encoder"], T_VCFG, torch.from_numpy(padded))
         n = got.codes.shape[1]

@@ -228,7 +228,7 @@ def test_init_model_and_generate_long(model_dir, precision):
     kw = dict(max_new_tokens=16, temperature=0.7, top_p=0.8, repetition_penalty=1.1)
     got = codes_of(tmodels.generate_long(model=engine, tokenizer=engine.tokenizer, text=TEXT,
                                          decode_one_token=None, **kw))
-    want = codes_of(tts.engine.generate_long(TEXT, noise=tts.engine._seed_noise(0), **kw))
+    want = codes_of(tts.engine.generate_long(TEXT, noise=tts.engine.seed_noise(0), **kw))
     np.testing.assert_array_equal(got, want)
     assert got.shape[1] > 3
 

@@ -454,10 +454,10 @@ def test_no_kernel_on_a_mesh(weights, vocab, monkeypatch):
         monkeypatch.setattr(m, "supports", lambda *a, **k: True)
     q = quantize_lm_params(weights[1])
     one = port_engine(q, vocab, 0)
-    assert tdecode.route(T_CFG, one.params, 1, 16, **one._options) == tdecode.Route(
+    assert tdecode.route(T_CFG, one.params, 1, 16, **one.runner.options) == tdecode.Route(
         True, True, False, top_k=32)  # the reference's rule: top_k > 0 keeps the books plain
     eng = port_engine(q, vocab, 0, tp_size=4, dp_size=2, sample_top_k=-1)
-    assert eng._options["fast_kernel"] is False
+    assert eng.runner.options["fast_kernel"] is False
     assert tdecode.route(T_CFG, eng.params, 1, 16, fast_kernel=True) == tdecode.Route(
         False, False, False)
     before = tdecode.launch_counts()

@@ -1,5 +1,5 @@
 """The B = 1 prefill graph (``decode.PrefillGraph`` through
-``decode.PrefillGraphs``) at tiny size on the CPU, where nothing can be
+``decode.Runner.prefill``) at tiny size on the CPU, where nothing can be
 captured: a stand-in for the capture keeps everything else (the static
 input buffers, their staging, the key, the counters) and replays the body
 the graph holds, ``decode.prefill_body``, eagerly.
@@ -9,7 +9,7 @@ the graph holds, ``decode.prefill_body``, eagerly.
   from a fresh state and behind a forked prefix, on the int8 kernel route
   (the kernels' plain versions) and the plain route.
 - A second, shorter prompt at the same key leaves no trace of the first.
-- The dispatcher runs the eager ``prefill`` for a state off the card, more
+- The runner runs the eager ``prefill`` for a state off the card, more
   than one row, parameters on a mesh and a host noise source, and builds
   no graph for them.
 
@@ -46,13 +46,15 @@ def bundle():
 
 class EagerReplay:
     """The stand-in for a captured graph: each replay runs the body on the
-    static buffers and writes its frame into the graph's output."""
+    static buffers and writes its frame into the graph's output (a decode
+    frame returns (frame, emitted) and writes its own ring)."""
 
     def __init__(self, fn, out):
         self.fn, self.out = fn, out
 
     def replay(self):
-        self.out.copy_(self.fn())
+        out = self.fn()
+        self.out.copy_(out[0] if isinstance(out, tuple) else out)
 
     def pool(self):
         return None
@@ -69,9 +71,9 @@ def refuse_capture(state, fn, pool=None):
 
 @pytest.fixture
 def graph_route(monkeypatch):
-    """PrefillGraphs takes its graph route on the CPU, with the stand-in."""
+    """The runner takes its graph route on the CPU, with the stand-in."""
     monkeypatch.setattr(decode, "_capture", eager_capture)
-    monkeypatch.setattr(decode, "eager_because", lambda *a: None)
+    monkeypatch.setattr(decode, "eager_because", lambda *a, **k: None)
 
 
 def prompt_of(length: int, bucket: int, seed: int, cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -95,6 +97,11 @@ def fresh(params, cfg, prefix=None):
             if k != "kv":
                 state[k].copy_(v)
     return state
+
+
+def runner_of(b, params, **options) -> decode.Runner:
+    return decode.Runner(params, b["cfg"], b["ids"], b["rope"], Metrics(), capacity=8,
+                         **options)
 
 
 def prefix_state(b, params):
@@ -129,12 +136,12 @@ def test_staged_body_equals_prefill(bundle, graph_route, weights, bucket, prefix
     want = fresh(params, cfg, pre)
     _, frame_e = decode.prefill(params, bundle["rope"], want, prompt, lengths, noise, *SAMPLING,
                                 cfg=cfg, ids=bundle["ids"], kv_bucket=kv)
-    graphs = decode.PrefillGraphs(params, cfg, bundle["ids"], bundle["rope"], Metrics())
+    runner = runner_of(bundle, params)
     got = fresh(params, cfg, pre)
     replays = decode.prefill_replays
-    _, frame_g = graphs.prefill(got, prompt, lengths, noise, *SAMPLING, kv_bucket=kv)
+    _, frame_g = runner.prefill(got, prompt, lengths, noise, *SAMPLING, kv_bucket=kv)
 
-    assert decode.prefill_replays == replays + 1 and len(graphs._graphs) == 1
+    assert decode.prefill_replays == replays + 1 and len(runner._prefills) == 1
     assert torch.equal(frame_g, frame_e)
     assert int(got["pos"][0]) == (PREFIX if prefixed else 0) + bucket - 5
     assert_same_state(got, want)
@@ -142,15 +149,15 @@ def test_staged_body_equals_prefill(bundle, graph_route, weights, bucket, prefix
 
 def test_shorter_prompt_leaves_no_trace(bundle, graph_route):
     cfg, params = bundle["cfg"], bundle["int8"]
-    graphs = decode.PrefillGraphs(params, cfg, bundle["ids"], bundle["rope"], Metrics())
+    runner = runner_of(bundle, params)
     state = fresh(params, cfg)
     long_p = prompt_of(60, 64, 21, cfg)
     short_p = prompt_of(9, 64, 22, cfg)
     noise = decode.GumbelNoise(7, cfg)
-    graphs.prefill(state, *long_p, noise, *SAMPLING, kv_bucket=0)
+    runner.prefill(state, *long_p, noise, *SAMPLING, kv_bucket=0)
     decode.reset_state(state)
-    _, frame_g = graphs.prefill(state, *short_p, noise, *SAMPLING, kv_bucket=0)
-    (graph,) = graphs._graphs.values()
+    _, frame_g = runner.prefill(state, *short_p, noise, *SAMPLING, kv_bucket=0)
+    (graph,) = runner._prefills.values()
     assert torch.equal(graph.prompt, short_p[0])  # the padding rewritten too
 
     want = fresh(params, cfg)
@@ -176,11 +183,11 @@ def test_dispatcher_runs_eager(bundle, monkeypatch, reason):
     elif reason == "mesh":
         engine = GenerationEngine(bundle["plain"], cfg, bundle["tok"],
                                   EngineConfig(tp_size=2, dp_size=1))
-        params, options = engine.params, engine._options
+        params, options = engine.params, engine.runner.options
     state = decode.init_state(params, cfg, batch=batch, max_seq_len=CACHE)
     prompt = torch.cat([prompt_of(20, 32, 30 + b, cfg)[0] for b in range(batch)])
     lengths = torch.full((batch,), 20, dtype=torch.int32)
-    assert decode.eager_because(params, state, batch, noise) == reason
+    assert decode.eager_because(params, state, batch, noise, prefill=True) == reason
 
     calls = []
     real = decode.prefill
@@ -191,26 +198,27 @@ def test_dispatcher_runs_eager(bundle, monkeypatch, reason):
 
     monkeypatch.setattr(decode, "prefill", spy)
     monkeypatch.setattr(decode, "_capture", refuse_capture)
-    graphs = decode.PrefillGraphs(params, cfg, ids, bundle["rope"], Metrics(), **options)
+    runner = runner_of(bundle, params, **options)
     eager, replays = decode.prefill_eager, decode.prefill_replays
-    _, frame = graphs.prefill(state, prompt, lengths, noise, *SAMPLING, kv_bucket=0)
-    assert calls == [0] and not graphs._graphs and frame.shape == (batch, 1 + cfg.num_codebooks)
+    _, frame = runner.prefill(state, prompt, lengths, noise, *SAMPLING, kv_bucket=0)
+    assert calls == [0] and not runner._prefills and frame.shape == (batch, 1 + cfg.num_codebooks)
     assert decode.prefill_eager == eager + 1 and decode.prefill_replays == replays
 
 
 def test_engine_prefills_through_its_graphs(bundle, monkeypatch):
-    """``generate_long`` prefills through the engine's ``PrefillGraphs`` (on
-    the CPU its eager prefill); the stand-in route gives the same codes."""
+    """``generate_long`` prefills through the engine's runner (on the CPU
+    its eager prefill); the stand-in route, decode graphs included, gives
+    the same codes."""
     cfg = bundle["cfg"]
     engine = GenerationEngine(bundle["int8"], cfg, bundle["tok"], EngineConfig())
     seen = []
-    real = decode.PrefillGraphs.prefill
+    real = decode.Runner.prefill
 
     def spy(self, state, *a, **k):
-        seen.append(self is engine._prefills)
+        seen.append(self is engine.runner)
         return real(self, state, *a, **k)
 
-    monkeypatch.setattr(decode.PrefillGraphs, "prefill", spy)
+    monkeypatch.setattr(decode.Runner, "prefill", spy)
 
     def codes():
         engine.reseed(9)
@@ -219,7 +227,7 @@ def test_engine_prefills_through_its_graphs(bundle, monkeypatch):
 
     eager = codes()
     monkeypatch.setattr(decode, "_capture", eager_capture)
-    monkeypatch.setattr(decode, "eager_because", lambda *a: None)
+    monkeypatch.setattr(decode, "eager_because", lambda *a, **k: None)
     graphed = codes()
-    assert seen == [True, True] and len(engine._prefills._graphs) == 1
+    assert seen == [True, True] and len(engine.runner._prefills) == 1
     assert all(np.array_equal(a, b) for a, b in zip(eager, graphed)) and len(eager) == 1

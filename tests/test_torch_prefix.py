@@ -1,6 +1,6 @@
 """The stored reference voice and the engine's KV prefix in the port against
 the JAX package, at tiny size on the CPU: the prompt matrices
-(``set_prefix``'s and ``_encode_suffix``'s), the prefix state, a split
+(``set_prefix``'s and ``encode_suffix``'s), the prefix state, a split
 prefill against a joint one, the codes of ``generate_long`` with the prefix
 against the JAX engine's with the same noise, the fork into the call's own
 state (never aliased, in place, sliced or padded to its allocation), a
@@ -82,7 +82,7 @@ def capture_prompts(monkeypatch, module, name="prefill"):
 
 
 def test_prompt_matrices_match_jax(monkeypatch):
-    """``set_prefix``'s padded prompt and ``_encode_suffix``'s matrix are the
+    """``set_prefix``'s padded prompt and ``encode_suffix``'s matrix are the
     JAX package's, bit for bit, and together they are ``build_prompt`` of the
     reference and the text."""
     jeng, teng = make_engines()
@@ -93,7 +93,7 @@ def test_prompt_matrices_match_jax(monkeypatch):
     (jp, jT, _), (tp, tT, _) = jseen[-1], tseen[-1]
     np.testing.assert_array_equal(tp, jp)
     assert tT == jT
-    suffix = teng._encode_suffix(TEXT).values
+    suffix = teng.encode_suffix(TEXT).values
     np.testing.assert_array_equal(suffix, jeng._encode_suffix(TEXT).values)
     full = build_prompt(teng.tokenizer, TEXT, K, prompt_texts=[ref.text],
                         prompt_codes=[ref.codes]).values
@@ -136,8 +136,8 @@ def test_split_prefill_matches_joint(pair, kv_bucket):
     _, teng = pair
     ref = profile(3)
     prefix = build_prompt(teng.tokenizer, "", K, prompt_texts=[ref.text], prompt_codes=[ref.codes])
-    suffix = teng._encode_suffix(TEXT).values
-    n_pre = prefix.values.shape[1] - teng._encode_suffix("").values.shape[1]
+    suffix = teng.encode_suffix(TEXT).values
+    n_pre = prefix.values.shape[1] - teng.encode_suffix("").values.shape[1]
     joint = np.concatenate([prefix.values[:, :n_pre], suffix], axis=1)
     noise = tdecode.GumbelNoise(21, T_CFG)
 
@@ -172,7 +172,7 @@ def test_prefix_codes_match_jax(pair, monkeypatch, streaming):
                                                            streaming=streaming)
     prompt, T, offset = seen[-1]
     assert offset == int(teng._prefix_state["pos"][0])
-    assert T == teng._encode_suffix(TEXT).values.shape[1]
+    assert T == teng.encode_suffix(TEXT).values.shape[1]
     assert [c.shape[1] for c in want] == ([10, 20] if streaming else [29])
     hold_codes(want, got, jframes, tframes, decisions)
 
@@ -211,7 +211,7 @@ def test_prefix_survives_calls(int8_engine):
     assert unchanged(prefix, snap)
     assert engine._prefix_state is prefix
     assert all(s["kv"]["k"].data_ptr() != prefix["kv"]["k"].data_ptr()
-               for s in engine._states.values())
+               for s in engine.runner._states.values())
     # the prefix changes the call: without it the same noise gives other codes
     assert not np.array_equal(codes_of(engine, TEXT, 5, use_prefix_cache=False), first)
 
@@ -307,7 +307,7 @@ def test_references_none_uses_the_store(tts, monkeypatch, entry):
         return seen[-1]
 
     prompt, T, offset = run(None)
-    assert (offset, T) == (n, tts.engine._encode_suffix(TEXT).values.shape[1])
+    assert (offset, T) == (n, tts.engine.encode_suffix(TEXT).values.shape[1])
     prompt, T, offset = run([])
     bare = build_prompt(tts._tokenizer, TEXT, K).values
     assert offset == 0
@@ -348,8 +348,8 @@ def test_set_prefix_noise_is_thrown_away(monkeypatch):
     cfg, params, tok, *_ = testing.make_tiny_bundle(0)
     engine = GenerationEngine(params, cfg, tok, seed=3)
     calls = []
-    real = engine._next_noise
-    monkeypatch.setattr(engine, "_next_noise", lambda: calls.append(1) or real())
+    real = engine.next_noise
+    monkeypatch.setattr(engine, "next_noise", lambda: calls.append(1) or real())
     ref = profile(1)
     engine.set_prefix([ref.text], [ref.codes])
     assert engine.has_prefix and not calls

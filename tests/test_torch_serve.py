@@ -317,9 +317,9 @@ def test_same_length_prefix_swap_fails_request(engine):
     try:
         srv = ContinuousBatcher(engine, slots=2)
         stale = srv.prepare("vs A", max_new_tokens=8, seed=85)
-        n = engine._prefix_snapshot()[2]
+        n = engine.prefix_snapshot()[2]
         engine.set_prefix(["ref transcript"], [random_ref(1, 4)])
-        assert engine._prefix_snapshot()[2] == n == int(engine._prefix_state["pos"][0])
+        assert engine.prefix_snapshot()[2] == n == int(engine._prefix_state["pos"][0])
         srv.enqueue(stale)
         codes, done = collect(srv.run())
         assert stale.id in done and (stale.id not in codes or codes[stale.id].shape[1] == 0)
@@ -333,7 +333,7 @@ def test_prefix_swap_while_prepare_reads_it(engine):
     keeps the old state's generation and length together, and admission
     fails it as stale while the co-tenant decodes against the new prefix."""
     engine.set_prefix(["ref transcript"], [random_ref(0, 4)])
-    old = engine._prefix_snapshot()
+    old = engine.prefix_snapshot()
     base, armed = type(engine), [True]
 
     class SwapAfterRead(base):
@@ -350,7 +350,7 @@ def test_prefix_swap_while_prepare_reads_it(engine):
             stale = srv.prepare("vs A", max_new_tokens=8, seed=86)
         finally:
             engine.__class__ = base
-        new = engine._prefix_snapshot()
+        new = engine.prefix_snapshot()
         assert not armed and new[1] != old[1] and new[2] != old[2]
         assert (stale.prefix_gen, stale.prefix_len) == old[1:]
         assert new[2] == int(new[0]["pos"][0])
@@ -397,7 +397,7 @@ def test_reset_recovers_from_a_failed_step(engine, monkeypatch):
         raise RuntimeError("device failure")
 
     with monkeypatch.context() as m:
-        m.setattr(srv, "_decode", broken)
+        m.setattr(srv.runner, "decode", broken)
         with pytest.raises(RuntimeError):
             srv.step()
     srv.reset()
@@ -430,8 +430,24 @@ def test_pool_cache_grows_and_shrinks_with_load(engine, monkeypatch):
     submit(srv, "x", 1, 1)
     srv.step()  # a short request alone: back to a small allocation
     assert srv._alloc < max(sizes)
-    ptrs = {s["kv"]["k"].data_ptr() for s in srv._states.values()}
-    assert len(ptrs) == len(srv._states) == len(set(srv.allocs))
+    states = [s for (_, _, scratch), s in srv.runner._states.items() if not scratch]
+    ptrs = {s["kv"]["k"].data_ptr() for s in states}
+    assert len(ptrs) == len(states) == len(set(srv.allocs))
+
+
+def test_one_slot_pool_keeps_its_scratch_apart(engine):
+    """At one slot the admission scratch and the pool's decode state have
+    the same (batch, rows) and stay two states; the codes are the solo
+    run's."""
+    solo = solo_codes(engine, "one slot", 4, 12)
+    srv = ContinuousBatcher(engine, slots=1)
+    rid = submit(srv, "one slot", 12, 4)
+    codes, done = collect(srv.run())
+    assert rid in done
+    np.testing.assert_array_equal(codes[rid], solo)
+    (key,) = [k for k in srv.runner._states if k[2]]
+    assert key[:2] == (1, srv._alloc)
+    assert srv.runner._states[key] is not srv._state
 
 
 def test_shrink_past_a_done_slot(engine, monkeypatch):
@@ -596,9 +612,9 @@ def test_batch_call_between_rounds_leaves_the_pool(engine):
     r_a, r_b = submit(srv, "first request text", 30, 11), submit(srv, "second one here", 30, 12)
     events = srv.step() + srv.step()
     engine.generate_batch(["a batch", "of two"], max_new_tokens=20)
-    pool = {s["kv"]["k"].data_ptr() for s in srv._states.values()}
-    assert engine._states and not pool & {s["kv"]["k"].data_ptr()
-                                          for s in engine._states.values()}
+    pool = {s["kv"]["k"].data_ptr() for s in srv.runner._states.values()}
+    assert engine.runner._states and not pool & {s["kv"]["k"].data_ptr()
+                                                 for s in engine.runner._states.values()}
     events += list(srv.run())
     codes, done = collect(events)
     assert {r_a, r_b} <= done

@@ -326,7 +326,7 @@ class Frames:
     def __init__(self, tts, monkeypatch):
         self.frames: list[np.ndarray] = []
         engine = tts.engine
-        prefill, decode = tdecode.prefill, engine._decode
+        prefill, decode = tdecode.prefill, engine.runner.decode
 
         def rec_prefill(*a, **k):
             state, first = prefill(*a, **k)
@@ -339,7 +339,7 @@ class Frames:
             return frames, emitted
 
         monkeypatch.setattr(tdecode, "prefill", rec_prefill)
-        monkeypatch.setattr(engine, "_decode", rec_decode)
+        monkeypatch.setattr(engine.runner, "decode", rec_decode)
 
     def tokens(self) -> np.ndarray:
         return np.concatenate([np.atleast_2d(f) for f in self.frames])[:, 0]
@@ -402,8 +402,10 @@ def test_stream_yields_the_eos_frame(tts, monkeypatch):
     tokens = rec.tokens()
     stop = next(k for k in range(12, 40)
                 if tokens.tolist().index(tokens[k]) == k and tokens[k] != tokens[0])
-    monkeypatch.setattr(tts.engine, "ids", dataclasses.replace(tts.engine.ids,
-                                                               im_end=int(tokens[stop])))
+    forced = dataclasses.replace(tts.engine.ids, im_end=int(tokens[stop]))
+    # the engine reads its EOS back on the host, its runner's decode on the device
+    for owner in (tts.engine, tts.engine.runner):
+        monkeypatch.setattr(owner, "ids", forced)
     chunks, codes = stream(tts, 6, 60)
     sizes = frames_of(chunks, tts)
     assert codes.shape[1] == sum(sizes) == stop + 1
